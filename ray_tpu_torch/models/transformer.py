@@ -6,23 +6,30 @@ in `cfg.dtype` (bf16 for the named models) with f32 norm reductions and an
 f32-accumulated head. Parameters keep the flax tree's names and layouts
 (`layer_{i}/attn/q/kernel` is [E,H,D], `o/kernel` is [H,D,E], and so on), so a
 JAX checkpoint maps over one to one (`models/convert.py`) and the serving
-engine reads the same tensors.
+engine reads the same tensors. Parameters are trainable; serving runs under
+`torch.inference_mode()`.
+
+Training: `remat=True` with `remat_policy="full"` recomputes each block in
+the backward pass (`torch.utils.checkpoint`, non-reentrant: JAX's `nn.remat`
+with no policy); `forward(..., return_hidden=True)` stops before the head for
+`fused_cross_entropy_loss`, which never holds the full [B,S,V] logits.
 
 Attention routes, as in the JAX module: "flash" runs the projections straight
 into [B,H,S,D] and the K1 kernel in that layout (`ops.attention.
-flash_attention_bhsd`); "reference" runs plain attention in [B,S,H,D]; a call
-with kv caches takes the plain cached route. The ring, ulysses, fused-qkv and
-MoE routes are later slices and raise.
+flash_attention_bhsd`, K2 in its backward); "reference" runs plain attention
+in [B,S,H,D]; a call with kv caches takes the plain cached route. The ring,
+ulysses, fused-qkv and MoE routes are later slices and raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.ops.attention import flash_attention_bhsd, reference_attention
@@ -46,6 +53,13 @@ class ModelConfig:
     # params and casts at use; serving stores bf16 copies (the same math).
     param_dtype: torch.dtype = torch.float32
     tie_embeddings: bool = False
+    # Training memory: recompute each block in the backward pass. Only
+    # "full" (recompute everything) is ported; attn/dots/selective raise.
+    remat: bool = True
+    remat_policy: str = "full"
+    # Inert: accepted so JAX's config overrides carry over; the port runs
+    # the same layer loop either way.
+    scan_layers: bool = True
     fused_qkv: bool = False
     attention: str = "flash"  # flash | reference | ring | ulysses
     moe_experts: int = 0
@@ -67,7 +81,8 @@ class ModelConfig:
 CONFIGS: Dict[str, ModelConfig] = {
     "test-tiny": ModelConfig(
         vocab_size=256, hidden=64, n_layers=2, n_heads=4, n_kv_heads=2, mlp_dim=128,
-        max_seq=128, dtype=torch.float32, attention="reference",
+        max_seq=128, dtype=torch.float32, remat=False, scan_layers=False,
+        attention="reference",
     ),
     "gpt2-125m": ModelConfig(
         vocab_size=50257, hidden=768, n_layers=12, n_heads=12, n_kv_heads=12,
@@ -99,9 +114,16 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise ValueError(f"unknown attention route {cfg.attention!r}")
     if cfg.fused_qkv:
         raise NotImplementedError(
-            "fused_qkv is ROADMAP Queue 1 item 1 (the training slice) of the "
-            "port"
+            "fused_qkv (one projection for q|k|v and gate|up) is ROADMAP "
+            "Queue 1 item 1b of the port"
         )
+    if cfg.remat and cfg.remat_policy != "full":
+        if cfg.remat_policy in ("attn", "dots", "selective"):
+            raise NotImplementedError(
+                f"remat_policy={cfg.remat_policy!r} is ROADMAP Queue 1 item 1a of "
+                f"the port; remat_policy='full' or remat=False run"
+            )
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
     if cfg.moe_experts > 0:
         raise NotImplementedError(
             "moe_experts > 0 (ops/moe.py) is ROADMAP Queue 1 item 7 (parallel "
@@ -189,18 +211,13 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return params
 
 
-def _param(t: torch.Tensor) -> nn.Parameter:
-    # Forward-only slice: the training slice (K2 backward) turns grads on.
-    return nn.Parameter(t, requires_grad=False)
-
-
 # ---------------------------------------------------------------- modules
 
 
 class RMSNorm(nn.Module):
     def __init__(self, scale: torch.Tensor, eps: float = 1e-5):
         super().__init__()
-        self.scale = _param(scale)
+        self.scale = nn.Parameter(scale)
         self.eps = eps
 
     def forward(self, x):
@@ -216,10 +233,10 @@ class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, p: ParamTree):
         super().__init__()
         self.cfg = cfg
-        self.q = _param(p["q"]["kernel"])  # [E,H,D]
-        self.k = _param(p["k"]["kernel"])  # [E,Hkv,D]
-        self.v = _param(p["v"]["kernel"])
-        self.o = _param(p["o"]["kernel"])  # [H,D,E]
+        self.q = nn.Parameter(p["q"]["kernel"])  # [E,H,D]
+        self.k = nn.Parameter(p["k"]["kernel"])  # [E,Hkv,D]
+        self.v = nn.Parameter(p["v"]["kernel"])
+        self.o = nn.Parameter(p["o"]["kernel"])  # [H,D,E]
 
     def _proj(self, x, w):
         """[B,S,E] -> [B,S,heads,D] in the activation dtype."""
@@ -282,9 +299,9 @@ class MLP(nn.Module):
     def __init__(self, cfg: ModelConfig, p: ParamTree):
         super().__init__()
         self.cfg = cfg
-        self.gate = _param(p["gate"]["kernel"])
-        self.up = _param(p["up"]["kernel"])
-        self.down = _param(p["down"]["kernel"])
+        self.gate = nn.Parameter(p["gate"]["kernel"])
+        self.up = nn.Parameter(p["up"]["kernel"])
+        self.down = nn.Parameter(p["down"]["kernel"])
 
     def forward(self, x):
         dt = self.cfg.dtype
@@ -323,48 +340,177 @@ class Transformer(nn.Module):
         self.device = resolve_device(device)
         if params is None:
             params = init_params(cfg, generator, self.device)
-        self.embedding = _param(params["embedding"])
+        self.embedding = nn.Parameter(params["embedding"])
         self.layers = nn.ModuleList(
             Block(cfg, params[f"layer_{i}"]) for i in range(cfg.n_layers))
         self.final_norm = RMSNorm(params["final_norm"]["scale"], cfg.norm_eps)
-        self.lm_head = None if cfg.tie_embeddings else _param(params["lm_head"]["kernel"])
+        self.lm_head = None if cfg.tie_embeddings else nn.Parameter(params["lm_head"]["kernel"])
         self.to(self.device)
 
-    def param_tree(self) -> ParamTree:
-        """The weights in the flax layout the engine reads (shared tensors)."""
-        tree: ParamTree = {"embedding": self.embedding.data}
-        for i, blk in enumerate(self.layers):
-            a, m = blk.attn, blk.mlp
-            tree[f"layer_{i}"] = {
-                "attn_norm": {"scale": blk.attn_norm.scale.data},
-                "attn": {n: {"kernel": getattr(a, n).data} for n in ("q", "k", "v", "o")},
-                "mlp_norm": {"scale": blk.mlp_norm.scale.data},
-                "mlp": {n: {"kernel": getattr(m, n).data} for n in ("gate", "up", "down")},
-            }
-        tree["final_norm"] = {"scale": self.final_norm.scale.data}
+    def named_tree_params(self) -> Iterator[Tuple[Tuple[str, ...], str]]:
+        """(flax path, module parameter name) of every weight, in the flax
+        tree's layout: ("layer_0", "attn", "q", "kernel") -> "layers.0.attn.q"."""
+        yield ("embedding",), "embedding"
+        for i in range(len(self.layers)):
+            for norm in ("attn_norm", "mlp_norm"):
+                yield (f"layer_{i}", norm, "scale"), f"layers.{i}.{norm}.scale"
+            for n in ("q", "k", "v", "o"):
+                yield (f"layer_{i}", "attn", n, "kernel"), f"layers.{i}.attn.{n}"
+            for n in ("gate", "up", "down"):
+                yield (f"layer_{i}", "mlp", n, "kernel"), f"layers.{i}.mlp.{n}"
+        yield ("final_norm", "scale"), "final_norm.scale"
         if self.lm_head is not None:
-            tree["lm_head"] = {"kernel": self.lm_head.data}
+            yield ("lm_head", "kernel"), "lm_head"
+
+    def param_tree(self, trainable: bool = False) -> ParamTree:
+        """The weights in the flax layout. By default plain tensors sharing the
+        parameters' storage (what the engine reads); with `trainable=True` the
+        nn.Parameters themselves (what training updates in place)."""
+        named = dict(self.named_parameters())
+        tree: ParamTree = {}
+        for path, name in self.named_tree_params():
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = named[name] if trainable else named[name].data
         return tree
 
     def forward(self, tokens, positions=None,
-                kv_caches: Optional[List[Tuple[torch.Tensor, torch.Tensor, int]]] = None):
+                kv_caches: Optional[List[Tuple[torch.Tensor, torch.Tensor, int]]] = None,
+                return_hidden: bool = False):
         cfg = self.cfg
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
         x = self.embedding[tokens].to(cfg.dtype)
         rope = _rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+        # JAX's nn.remat(Block, policy=None): nothing inside a block is kept
+        # for the backward pass; the block reruns (K1 included) when its
+        # gradient is taken.
+        remat = cfg.remat and kv_caches is None and torch.is_grad_enabled()
         new_caches = []
         for i, blk in enumerate(self.layers):
+            if remat:
+                x = checkpoint(_block_no_cache, blk, x, positions, rope, use_reentrant=False)
+                continue
             cache = kv_caches[i] if kv_caches is not None else None
             x, new_cache = blk(x, positions, rope, cache)
             new_caches.append(new_cache)
         x = self.final_norm(x)
+        if return_hidden:
+            # Training fast path: the caller takes fused_cross_entropy_loss
+            # against the table instead of materializing [B,S,V] f32 logits.
+            return x
         if cfg.tie_embeddings:
             # bf16 operands, f32 products and sums: the f32 result JAX's
             # preferred_element_type gives (bf16 products are exact in f32).
-            logits = x.to(cfg.dtype).float() @ self.embedding.to(cfg.dtype).float().T
+            logits = _matmul_f32(x.to(cfg.dtype), self.embedding.T)
         else:
             logits = (x.to(cfg.dtype) @ self.lm_head.to(cfg.dtype)).float()
         if kv_caches is not None:
             return logits, new_caches
         return logits
+
+
+def _block_no_cache(blk: Block, x, positions, rope):
+    return blk(x, positions, rope)[0]
+
+
+# ---------------------------------------------------------------- head and losses
+
+
+class _MatmulF32Out(torch.autograd.Function):
+    """a [..., K] @ b [K, N] with a in bf16/f16, b's values rounded to a's
+    dtype (`b_low`), f32 sums and an f32 result, on the GPU (cuBLAS through
+    `torch.mm(..., out_dtype=torch.float32)`): what JAX's
+    `preferred_element_type=f32` computes, at the tensor cores' rate rather
+    than an f32 GEMM's. The backward rounds the f32 cotangent to a's dtype,
+    as a bf16 product on the TPU does; a's grad is summed in f32 and rounded
+    once to a's dtype (cuBLAS's bf16-output GEMM read about twice one
+    rounding's error at gpt2-125m's head), and b's is summed in f32 and
+    returned in b's dtype, so a table used by many chunks accumulates its
+    grad in f32."""
+
+    @staticmethod
+    def forward(ctx, a, b, b_low):
+        ctx.save_for_backward(a, b_low)
+        ctx.b_dtype = b.dtype
+        return torch.mm(a.reshape(-1, a.shape[-1]), b_low, out_dtype=torch.float32).view(
+            *a.shape[:-1], b_low.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b_low = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).to(a.dtype)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.mm(g2, b_low.T, out_dtype=torch.float32).to(a.dtype).view(a.shape)
+        if ctx.needs_input_grad[1]:
+            db = torch.mm(a.reshape(-1, a.shape[-1]).T, g2,
+                          out_dtype=torch.float32).to(ctx.b_dtype)
+        return da, db, None
+
+
+def _matmul_f32(a: torch.Tensor, b: torch.Tensor,
+                b_low: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """a [..., K] @ b [K, N] -> f32, with b rounded to a's dtype (bf16
+    products are exact in f32). `b_low`, b already cast (`b.detach().to(
+    a.dtype)`), spares the cast when b is used many times."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
+        if b_low is None:
+            b_low = b.detach().to(a.dtype)
+        return _MatmulF32Out.apply(a, b, b_low)
+    return a.float() @ b.to(a.dtype).float()
+
+
+def cross_entropy_loss(logits, targets, mask=None):
+    """Mean next-token loss. logits:[B,S,V] float32; targets:[B,S] int."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()
+
+
+def _chunk_nll_sum(h, w, w_low, t, m):
+    logits = _matmul_f32(h, w, w_low)  # [B,c,V] f32
+    nll = torch.logsumexp(logits, dim=-1) - torch.gather(logits, -1, t[..., None])[..., 0]
+    return (nll * m).sum() if m is not None else nll.sum()
+
+
+def fused_cross_entropy_loss(hidden, table, targets, mask=None, *, chunk: int = 256,
+                             contract_dim: int = 1, compute_dtype=torch.bfloat16):
+    """Chunked head matmul + cross-entropy that never holds the full logits.
+
+    The port of ray_tpu's `fused_cross_entropy_loss`: the sequence is cut
+    into chunks of gcd(S, chunk) positions; each chunk's [B,c,V] f32 logits
+    are computed under a non-reentrant checkpoint, so the backward pass
+    recomputes them and at most one chunk's logits is alive at a time.
+    hidden: [B,S,E] (post final norm); table: the tied embedding [V,E]
+    (contract_dim=1) or an untied lm_head kernel [E,V] (contract_dim=0);
+    targets: [B,S] int. The head is the model's: `compute_dtype` operands,
+    f32 sums and result."""
+    B, S, E = hidden.shape
+    c = math.gcd(S, chunk)
+    if contract_dim == 1:
+        w = table.T  # [E,V]
+    elif contract_dim == 0:
+        w = table
+    else:
+        raise ValueError(f"contract_dim must be 0 or 1, got {contract_dim}")
+    # Cast once for every chunk; each chunk's grad reaches the table in f32,
+    # as JAX's per-chunk cast inside the checkpoint gives it.
+    w_low = w.detach().to(compute_dtype) if hidden.is_cuda else None
+    targets = targets.long()
+    if mask is not None:
+        mask = mask.to(torch.float32)
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for s0 in range(0, S, c):
+        h = hidden[:, s0:s0 + c].to(compute_dtype)
+        m = None if mask is None else mask[:, s0:s0 + c]
+        total = total + checkpoint(_chunk_nll_sum, h, w, w_low, targets[:, s0:s0 + c], m,
+                                   use_reentrant=False)
+    count = (torch.tensor(float(B * S), device=hidden.device) if mask is None
+             else mask.sum())
+    return total / count.clamp_min(1.0)

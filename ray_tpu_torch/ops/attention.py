@@ -1,16 +1,19 @@
-"""Attention ops: the flash-attention forward kernel (K1) and the plain paths.
+"""Attention ops: the flash-attention kernels (K1 forward, K2 backward) and
+the plain paths.
 
 Twin of `ray_tpu/ops/attention.py`. On the TPU the forward is the Pallas
-kernel `_flash_fwd_kernel`; here it is the hand-written Hopper kernel in
-`csrc/flash_fwd.cu` (CUDA C++ for sm_90a, loaded with ctypes). The wrapper
-`flash_forward` launches that kernel for CUDA tensors, and for CPU tensors it
-takes `flash_forward_reference`, the same function in plain PyTorch. There is
-no fallback from the kernel to the plain version on the GPU: a tensor the
-kernel does not take raises.
+kernel `_flash_fwd_kernel` and the backward `_flash_bwd_fused_kernel`; here
+they are the hand-written Hopper kernels in `csrc/flash_fwd.cu` and
+`csrc/flash_bwd.cu` (CUDA C++ for sm_90a, loaded with ctypes). The wrappers
+`flash_forward` and `flash_backward` launch those kernels for CUDA tensors,
+and for CPU tensors take `flash_forward_reference` and
+`flash_backward_reference`, the same functions in plain PyTorch. There is no
+fallback from a kernel to its plain version on the GPU: a tensor the kernel
+does not take raises.
 
-The backward kernel (K2, `_flash_bwd_fused_kernel`) belongs to the training
-slice; until it lands, the flash entry points raise on CUDA tensors that
-require grad.
+`flash_attention` and `flash_attention_bhsd` are `torch.autograd.Function`s
+over the two wrappers, with the residuals of JAX's `_flash_fwd_rule`
+(q, k, v, out, lse).
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ _NEG_INF = -1e30
 
 # Launch counts of the port's kernels: each wrapper adds one where it
 # launches its kernel and nowhere else.
-LAUNCHES = {"flash_fwd": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0}
 
 
 def _use_kernel(t: torch.Tensor) -> bool:
@@ -120,22 +123,28 @@ def _flash_lib():
     return lib
 
 
-def _check_kernel_operand(name: str, t: torch.Tensor, device) -> None:
+def _aligned(t: torch.Tensor) -> bool:
+    return t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:-1]) and not t.data_ptr() % 16
+
+
+def _check_kernel_operand(name: str, t: torch.Tensor, device, fn: str = "flash_forward") -> None:
     if t.device != device:
-        raise ValueError(f"flash_forward: {name} is on {t.device}, q on {device}")
+        raise ValueError(f"{fn}: {name} is on {t.device}, q on {device}")
     if t.dtype != torch.bfloat16:
         raise TypeError(
-            f"flash_forward: the CUDA kernel takes bfloat16 q/k/v; {name} is "
+            f"{fn}: the CUDA kernel takes bfloat16 operands; {name} is "
             f"{t.dtype}. Cast to bfloat16 (f32 runs only through the CPU path)."
         )
-    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1]) or t.data_ptr() % 16:
+    if not _aligned(t):
         raise ValueError(
-            f"flash_forward: {name} needs a contiguous head dim and 16-byte "
+            f"{fn}: {name} needs a contiguous head dim and 16-byte "
             f"aligned rows (strides {t.stride()})"
         )
 
 
-def _flash_forward_cuda(q, k, v, *, causal, scale, layout):
+def _kernel_dims(q, k, v, layout, fn):
+    """(B, H, Hkv, S, T, D, s_dim, h_dim) of a kernel call, after the checks
+    both kernels share: agreeing shapes, head_dim 64 or 128, Hkv dividing H."""
     if layout == "bshd":
         B, S, H, D = q.shape
         T, Hkv = k.shape[1], k.shape[2]
@@ -147,14 +156,19 @@ def _flash_forward_cuda(q, k, v, *, causal, scale, layout):
     else:
         raise ValueError(f"layout must be 'bshd' or 'bhsd', got {layout!r}")
     if k.shape != v.shape or k.shape[0] != B or k.shape[-1] != D:
-        raise ValueError(f"flash_forward: q {tuple(q.shape)} k {tuple(k.shape)} "
+        raise ValueError(f"{fn}: q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not agree ({layout})")
     if D not in (64, 128):
-        raise ValueError(f"flash_forward: the CUDA kernel takes head_dim 64 or 128, got {D}")
+        raise ValueError(f"{fn}: the CUDA kernel takes head_dim 64 or 128, got {D}")
     if Hkv <= 0 or H % Hkv:
-        raise ValueError(f"flash_forward: {H} query heads over {Hkv} kv heads")
+        raise ValueError(f"{fn}: {H} query heads over {Hkv} kv heads")
     if S <= 0 or T <= 0 or B * H > 65535:
-        raise ValueError(f"flash_forward: unsupported extent B*H={B * H} S={S} T={T}")
+        raise ValueError(f"{fn}: unsupported extent B*H={B * H} S={S} T={T}")
+    return B, H, Hkv, S, T, D, s_dim, h_dim
+
+
+def _flash_forward_cuda(q, k, v, *, causal, scale, layout):
+    B, H, Hkv, S, T, D, s_dim, h_dim = _kernel_dims(q, k, v, layout, "flash_forward")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_kernel_operand(name, t, q.device)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -193,29 +207,157 @@ def flash_forward(q, k, v, *, causal: bool, scale: float,
     return _flash_forward_cuda(q, k, v, causal=causal, scale=scale, layout=layout)
 
 
-def _forward_only(q, k, v) -> None:
-    if (q.is_cuda and torch.is_grad_enabled()
-            and any(t.requires_grad for t in (q, k, v))):
-        raise NotImplementedError(
-            "flash attention backward on CUDA is K2 (ray_tpu/ops/attention.py:"
-            "_flash_bwd_fused_kernel), ported in the training slice (ROADMAP "
-            "Queue 2); run the forward under torch.no_grad() or "
-            "torch.inference_mode()"
+# ------------------------------------------------------------------ K2 kernel
+
+def flash_backward_reference(q, k, v, out, lse, g, *, causal: bool, scale: float,
+                             layout: str = "bshd"):
+    """K2's function in plain PyTorch: the same contract as `flash_backward`.
+
+    The numerics of ray_tpu's `_flash_bwd_fused_kernel`: s = q.k^T * scale in
+    f32 with -1e30 above the top-left causal diagonal; p = exp(s - lse) in
+    f32; dv = p^T.g with p rounded to v's dtype; dp = g.v^T;
+    ds = p * (dp - delta) * scale rounded to q's dtype; dk = ds^T.q;
+    dq = ds.k; products summed in f32. delta = rowsum(g * out) in f32, taken
+    outside the kernel as `_flash_backward` does, and g is cast to q's dtype.
+    GQA (Hkv < H): query head h reads kv head h // (H // Hkv), and dk/dv are
+    summed over the repeat axis in f32 before the cast to k's and v's dtype.
+    Returns (dq, dk, dv) in q's, k's and v's dtype and layout."""
+    qh, kh, vh = _to_bhsd(q, k, v, layout)
+    gh, oh = (g.transpose(1, 2), out.transpose(1, 2)) if layout == "bshd" else (g, out)
+    B, H, S, D = qh.shape
+    Hkv, T = kh.shape[1], kh.shape[2]
+    rep = H // Hkv
+    if rep > 1:
+        kh = kh.repeat_interleave(rep, dim=1)
+        vh = vh.repeat_interleave(rep, dim=1)
+    delta = (gh.float() * oh.float()).sum(-1, keepdim=True)  # [B,H,S,1]
+    g32 = gh.to(q.dtype).float()
+    s = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale  # [B,H,S,T]
+    if causal:
+        mask = (torch.arange(S, device=q.device)[:, None]
+                >= torch.arange(T, device=q.device)[None, :])
+        s = torch.where(mask, s, _NEG_INF)
+    p = torch.exp(s - lse.float()[..., None])
+    del s
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), g32)  # [B,H,T,D]
+    dp = torch.matmul(g32, vh.float().transpose(-1, -2))
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
+    del p, dp
+    dk = torch.matmul(ds.transpose(-1, -2), qh.float())
+    dq = torch.matmul(ds, kh.float())
+    if rep > 1:
+        dk = dk.view(B, Hkv, rep, T, D).sum(2)
+        dv = dv.view(B, Hkv, rep, T, D).sum(2)
+    dq, dk, dv = dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    if layout == "bshd":
+        dq, dk, dv = (t.transpose(1, 2).contiguous() for t in (dq, dk, dv))
+    return dq, dk, dv
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_bwd_lib():
+    """K2's library, built at first use (see `_flash_lib`)."""
+    from ray_tpu_torch.ops import _build
+
+    lib = _build.load("flash_bwd")
+    lib.ray_tpu_torch_flash_bwd.restype = ctypes.c_int
+    lib.ray_tpu_torch_flash_bwd.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 21
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.ray_tpu_torch_flash_bwd_error_string.restype = ctypes.c_char_p
+    lib.ray_tpu_torch_flash_bwd_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _flash_backward_cuda(q, k, v, out, lse, g, *, causal, scale, layout):
+    fn = "flash_backward"
+    B, H, Hkv, S, T, D, s_dim, h_dim = _kernel_dims(q, k, v, layout, fn)
+    if out.shape != q.shape or g.shape != q.shape:
+        raise ValueError(f"{fn}: out {tuple(out.shape)} and g {tuple(g.shape)} "
+                         f"must have q's shape {tuple(q.shape)}")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"{fn}: lse must be f32 [B,H,S] = {(B, H, S)} on {q.device}, "
+                         f"got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    g = g.to(q.dtype)
+    if not _aligned(g):
+        g = g.contiguous()  # autograd may hand over an expanded or odd-strided grad
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out), ("g", g)):
+        _check_kernel_operand(name, t, q.device, fn)
+    # delta = rowsum(g * out) in f32, outside the kernel as in JAX; [B,H,S].
+    delta = (g.float() * out.float()).sum(-1)
+    if layout == "bshd":
+        delta = delta.transpose(1, 2)
+    delta = delta.contiguous()
+    lse = lse.contiguous()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    lib = _flash_bwd_lib()
+
+    def bhs(t):
+        return t.stride(0), t.stride(h_dim), t.stride(s_dim)
+
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.ray_tpu_torch_flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, H, Hkv, S, T, D, *bhs(q), *bhs(k), *bhs(v), *bhs(g), *bhs(dq),
+            *bhs(dk), *bhs(dv), float(scale), int(bool(causal)), stream,
         )
+    if err:
+        msg = lib.ray_tpu_torch_flash_bwd_error_string(err).decode()
+        raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {err} ({msg})")
+    LAUNCHES["flash_bwd"] += 1
+    return dq, dk, dv
+
+
+def flash_backward(q, k, v, out, lse, g, *, causal: bool, scale: float,
+                   layout: str = "bshd"):
+    """K2 wrapper, the contract of ray_tpu's `_flash_backward` with GQA
+    folded in: q/out/g in q's layout, k/v with Hkv heads (Hkv divides H),
+    lse [B,H,S] f32 from the forward -> (dq, dk, dv) in q's, k's and v's
+    dtype and layout, dk/dv already summed over each kv head's query heads.
+    CUDA tensors launch the kernel (bf16, head_dim 64 or 128) or raise; CPU
+    tensors take `flash_backward_reference`."""
+    if not _use_kernel(q):
+        return flash_backward_reference(q, k, v, out, lse, g, causal=causal, scale=scale,
+                                        layout=layout)
+    return _flash_backward_cuda(q, k, v, out, lse, g, causal=causal, scale=scale,
+                                layout=layout)
+
+
+# ------------------------------------------------------------------ autograd
+
+class _FlashAttention(torch.autograd.Function):
+    """forward = K1 (`flash_forward`), backward = K2 (`flash_backward`), with
+    the residuals of ray_tpu's `_flash_fwd_rule`: (q, k, v, out, lse). Under
+    a non-reentrant checkpoint the forward reruns in the backward pass and K2
+    reads the lse of that rerun."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, layout):
+        out, lse = flash_forward(q, k, v, causal=causal, scale=scale, layout=layout)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale, ctx.layout = causal, scale, layout
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, out, lse, g, causal=ctx.causal,
+                                    scale=ctx.scale, layout=ctx.layout)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None):
     """Flash attention. q:[B,S,H,D], k/v:[B,T,Hkv,D] (GQA: Hkv divides H)."""
-    _forward_only(q, k, v)
     eff_scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    out, _ = flash_forward(q, k, v, causal=causal, scale=eff_scale, layout="bshd")
-    return out
+    return _FlashAttention.apply(q, k, v, causal, eff_scale, "bshd")
 
 
 def flash_attention_bhsd(q, k, v, causal: bool = True, scale: Optional[float] = None):
     """Flash attention in the kernel's native layout: q:[B,H,S,D],
     k/v:[B,Hkv,T,D] -> [B,H,S,D]."""
-    _forward_only(q, k, v)
     eff_scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    out, _ = flash_forward(q, k, v, causal=causal, scale=eff_scale, layout="bhsd")
-    return out
+    return _FlashAttention.apply(q, k, v, causal, eff_scale, "bhsd")
