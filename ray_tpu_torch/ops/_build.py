@@ -3,9 +3,10 @@
 Each kernel source `csrc/<name>.cu` has a plain C interface. It is compiled
 with nvcc for `sm_90a` into a shared library under `ops/build/` (git-ignored)
 at first use and loaded with ctypes. The library's file name carries a hash
-of the source, so an edited source never loads a stale build. Nothing here
-runs at import time: the CPU tests import every module of the package on a
-machine without nvcc.
+of the source and of every `csrc/` header it includes (`#include "..."`,
+followed into headers), so an edited source or header never loads a stale
+build. Nothing here runs at import time: the CPU tests import every module of
+the package on a machine without nvcc.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -28,7 +30,9 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-# nvcc's output per kernel (ptxas register/shared-memory report), for logs.
+# nvcc's output per kernel (ptxas register/shared-memory report), for logs;
+# kept beside each library as `<library>.log`, so a later process that finds
+# the library built reads the report of its build.
 BUILD_LOG: Dict[str, str] = {}
 
 
@@ -45,10 +49,32 @@ def _nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> list:
+    """`csrc/<name>.cu` and the `csrc/` files it includes, directly or through
+    another header, each once, in the order first met."""
+    order = []
+    pending = [f"{name}.cu"]
+    while pending:
+        rel = pending.pop(0)
+        if rel in order:
+            continue
+        order.append(rel)
+        with open(os.path.join(CSRC_DIR, rel), "rb") as f:
+            text = f.read()
+        pending += [inc.decode() for inc in _INCLUDE.findall(text)
+                    if os.path.exists(os.path.join(CSRC_DIR, inc.decode()))]
+    return order
+
+
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest[:16]}.so")
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for rel in _sources(name):
+        with open(os.path.join(CSRC_DIR, rel), "rb") as f:
+            digest.update(rel.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
 def build(names: Iterable[str]) -> None:
@@ -60,6 +86,9 @@ def build(names: Iterable[str]) -> None:
     for name in dict.fromkeys(names):
         path = _lib_path(name)
         if os.path.exists(path):
+            if name not in BUILD_LOG and os.path.exists(path + ".log"):
+                with open(path + ".log") as f:
+                    BUILD_LOG[name] = f.read()
             continue
         # Compile to a temporary name and rename into place, so a process
         # that races this one never loads a half-written library.
@@ -73,6 +102,9 @@ def build(names: Iterable[str]) -> None:
         out, _ = proc.communicate()
         BUILD_LOG[name] = out
         if proc.returncode == 0:
+            with open(tmp + ".log", "w") as f:
+                f.write(out)
+            os.replace(tmp + ".log", path + ".log")
             os.replace(tmp, path)
         else:
             os.unlink(tmp)

@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import struct
 from typing import Optional, Tuple
 
 import torch
@@ -109,25 +110,41 @@ def flash_forward_reference(q, k, v, *, causal: bool, scale: float,
 
 @functools.lru_cache(maxsize=None)
 def _flash_lib():
-    """K1's library, built at first use, with its C signatures declared
-    (pointers and the stream as c_void_p, or ctypes cuts them to 32 bits)."""
+    """K1's library, built at first use, with its C signatures declared: the
+    launch's arguments packed into one block (`_FWD_ARGS`) and the stream as
+    c_void_p (as an int, ctypes would cut it to 32 bits)."""
     from ray_tpu_torch.ops import _build
 
     lib = _build.load("flash_fwd")
     lib.ray_tpu_torch_flash_fwd.restype = ctypes.c_int
-    lib.ray_tpu_torch_flash_fwd.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.ray_tpu_torch_flash_fwd.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
     lib.ray_tpu_torch_cuda_error_string.restype = ctypes.c_char_p
     lib.ray_tpu_torch_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+# The kernels' argument blocks (FwdArgs, BwdArgs in csrc/): pointers, then
+# extents and (batch, head, seq) strides, scale, causal; 8 bytes a field.
+_FWD_ARGS = struct.Struct("<5Q6q12qdq")
+_BWD_ARGS = struct.Struct("<10Q6q24qdq")
+_FWD_FN = None
+
+
+def _flash_fwd_fn():
+    """K1's bound entry point, looked up once."""
+    global _FWD_FN
+    if _FWD_FN is None:
+        _FWD_FN = _flash_lib().ray_tpu_torch_flash_fwd
+    return _FWD_FN
 
 
 def _aligned(t: torch.Tensor) -> bool:
     return t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:-1]) and not t.data_ptr() % 16
 
 
-def _check_kernel_operand(name: str, t: torch.Tensor, device, fn: str = "flash_forward") -> None:
+def _kernel_operand(fn: str, name: str, t: torch.Tensor, device):
+    """t's data pointer and strides, after the checks a kernel operand needs:
+    on q's device, bfloat16, a contiguous head dim and 16-byte aligned rows."""
     if t.device != device:
         raise ValueError(f"{fn}: {name} is on {t.device}, q on {device}")
     if t.dtype != torch.bfloat16:
@@ -135,11 +152,13 @@ def _check_kernel_operand(name: str, t: torch.Tensor, device, fn: str = "flash_f
             f"{fn}: the CUDA kernel takes bfloat16 operands; {name} is "
             f"{t.dtype}. Cast to bfloat16 (f32 runs only through the CPU path)."
         )
-    if not _aligned(t):
+    st, ptr = t.stride(), t.data_ptr()
+    if st[3] != 1 or ptr % 16 or (st[0] | st[1] | st[2]) % 8:
         raise ValueError(
             f"{fn}: {name} needs a contiguous head dim and 16-byte "
-            f"aligned rows (strides {t.stride()})"
+            f"aligned rows (strides {st})"
         )
+    return ptr, st
 
 
 def _kernel_dims(q, k, v, layout, fn):
@@ -155,38 +174,47 @@ def _kernel_dims(q, k, v, layout, fn):
         s_dim, h_dim = 2, 1
     else:
         raise ValueError(f"layout must be 'bshd' or 'bhsd', got {layout!r}")
-    if k.shape != v.shape or k.shape[0] != B or k.shape[-1] != D:
+    if k.shape != v.shape or k.dim() != 4 or k.shape[0] != B or k.shape[-1] != D:
         raise ValueError(f"{fn}: q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not agree ({layout})")
     if D not in (64, 128):
         raise ValueError(f"{fn}: the CUDA kernel takes head_dim 64 or 128, got {D}")
     if Hkv <= 0 or H % Hkv:
         raise ValueError(f"{fn}: {H} query heads over {Hkv} kv heads")
-    if S <= 0 or T <= 0 or B * H > 65535:
-        raise ValueError(f"{fn}: unsupported extent B*H={B * H} S={S} T={T}")
+    if S <= 0 or T <= 0 or max(S, T) > 32 * 65535:  # a grid dimension counts tiles
+        raise ValueError(f"{fn}: unsupported extent S={S} T={T}")
     return B, H, Hkv, S, T, D, s_dim, h_dim
 
 
+def _launch(device: torch.device, fn, *args):
+    """Calls a kernel library's entry point with `device` current and its
+    current stream as the last argument; enters `torch.cuda.device` only when
+    another device is current (the served chunks are launch-bound, so the
+    common case stays cheap)."""
+    index = device.index
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
 def _flash_forward_cuda(q, k, v, *, causal, scale, layout):
-    B, H, Hkv, S, T, D, s_dim, h_dim = _kernel_dims(q, k, v, layout, "flash_forward")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_kernel_operand(name, t, q.device)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    lib = _flash_lib()
-
-    def bhs(t):
-        return t.stride(0), t.stride(h_dim), t.stride(s_dim)
-
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.ray_tpu_torch_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            B, H, Hkv, S, T, D, *bhs(q), *bhs(k), *bhs(v), *bhs(out),
-            float(scale), int(bool(causal)), stream,
-        )
+    fn = "flash_forward"
+    B, H, Hkv, S, T, D, s_dim, h_dim = _kernel_dims(q, k, v, layout, fn)
+    device = q.device
+    qp, qst = _kernel_operand(fn, "q", q, device)
+    kp, kst = _kernel_operand(fn, "k", k, device)
+    vp, vst = _kernel_operand(fn, "v", v, device)
+    out = torch.empty(q.shape, dtype=q.dtype, device=device)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=device)
+    ost = out.stride()
+    err = _launch(device, _flash_fwd_fn(), _FWD_ARGS.pack(
+        qp, kp, vp, out.data_ptr(), lse.data_ptr(), B, H, Hkv, S, T, D,
+        qst[0], qst[h_dim], qst[s_dim], kst[0], kst[h_dim], kst[s_dim],
+        vst[0], vst[h_dim], vst[s_dim], ost[0], ost[h_dim], ost[s_dim],
+        scale, bool(causal)))
     if err:
-        msg = lib.ray_tpu_torch_cuda_error_string(err).decode()
+        msg = _flash_lib().ray_tpu_torch_cuda_error_string(err).decode()
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err} ({msg})")
     LAUNCHES["flash_fwd"] += 1
     return out, lse
@@ -261,9 +289,7 @@ def _flash_bwd_lib():
 
     lib = _build.load("flash_bwd")
     lib.ray_tpu_torch_flash_bwd.restype = ctypes.c_int
-    lib.ray_tpu_torch_flash_bwd.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 21
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.ray_tpu_torch_flash_bwd.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
     lib.ray_tpu_torch_flash_bwd_error_string.restype = ctypes.c_char_p
     lib.ray_tpu_torch_flash_bwd_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -281,35 +307,24 @@ def _flash_backward_cuda(q, k, v, out, lse, g, *, causal, scale, layout):
     g = g.to(q.dtype)
     if not _aligned(g):
         g = g.contiguous()  # autograd may hand over an expanded or odd-strided grad
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out), ("g", g)):
-        _check_kernel_operand(name, t, q.device, fn)
-    # delta = rowsum(g * out) in f32, outside the kernel as in JAX; [B,H,S].
-    delta = (g.float() * out.float()).sum(-1)
-    if layout == "bshd":
-        delta = delta.transpose(1, 2)
-    delta = delta.contiguous()
+    device = q.device
+    ops = [_kernel_operand(fn, name, t, device)
+           for name, t in (("q", q), ("k", k), ("v", v), ("out", out), ("g", g))]
     lse = lse.contiguous()
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    # delta = rowsum(g * out), [B,H,S] f32: computed by the library's first kernel.
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=device)
+    grads = [torch.empty(t.shape, dtype=t.dtype, device=device) for t in (q, k, v)]
     lib = _flash_bwd_lib()
-
-    def bhs(t):
-        return t.stride(0), t.stride(h_dim), t.stride(s_dim)
-
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.ray_tpu_torch_flash_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, H, Hkv, S, T, D, *bhs(q), *bhs(k), *bhs(v), *bhs(g), *bhs(dq),
-            *bhs(dk), *bhs(dv), float(scale), int(bool(causal)), stream,
-        )
+    ptrs = [p for p, _ in ops] + [lse.data_ptr(), delta.data_ptr()] + [t.data_ptr() for t in grads]
+    strides = [st for _, st in ops] + [t.stride() for t in grads]
+    err = _launch(device, lib.ray_tpu_torch_flash_bwd, _BWD_ARGS.pack(
+        *ptrs, B, H, Hkv, S, T, D, *(x for st in strides for x in (st[0], st[h_dim], st[s_dim])),
+        scale, bool(causal)))
     if err:
         msg = lib.ray_tpu_torch_flash_bwd_error_string(err).decode()
         raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {err} ({msg})")
     LAUNCHES["flash_bwd"] += 1
-    return dq, dk, dv
+    return tuple(grads)
 
 
 def flash_backward(q, k, v, out, lse, g, *, causal: bool, scale: float,

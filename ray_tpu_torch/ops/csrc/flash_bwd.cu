@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernel ray_tpu/ops/attention.py:_flash_bwd_fused_kernel
 // (launched by _flash_backward through pl.pallas_call). Computes the same
-// function, from the forward's lse and delta = rowsum(g * out) (f32, taken by
-// the caller, as JAX takes it outside the kernel):
+// function, from the forward's out and lse:
+//   delta = rowsum(g * out) in f32 (JAX takes it outside its kernel; here a
+//           kernel of this library takes it, reading g and out once in bf16)
 //   s  = (q . k^T) * scale in f32, entries above the top-left causal diagonal
 //        (col > row, both counted from 0) masked out
 //   p  = exp(s - lse) in f32
@@ -12,344 +13,484 @@
 //   ds = p * (dp - delta) * scale, rounded to bf16
 //   dk = ds^T . q,  dq = ds . k   f32 sums, written in bf16
 //
+// What bounds it on an H100: per (row, col) pair the mask keeps, the function
+// needs 5 products of depth D (10*D flops); at the training shapes (S = T =
+// 1024..2048, D = 64) that is far above the card's ~295 flop/byte ridge, so
+// the tensor cores bound it.
+//
 // The TPU kernel walks (k block, q block) in order on one core, keeps dk/dv in
 // VMEM scratch across the inner q axis and accumulates dq in an HBM block it
 // revisits for every k block. GPU blocks run in no order, so the work is split
-// into two kernels that each recompute p, and no sum crosses blocks (the
-// result is the same on every run; no atomics):
-//   dkdv: one block of 4 warps per (batch, kv head, 64-row k tile). It keeps
-//         its K and V tiles in shared memory and loops over the H/Hkv query
-//         heads that read this kv head and, for each, over the 64-row q tiles
-//         from the causal diagonal on. Each warp owns 16 k rows and keeps their
-//         dK and dV in wmma accumulator fragments for the whole loop, so GQA's
-//         sum over the repeat axis happens here, in f32.
-//   dq:   one block of 4 warps per (batch*head, 64-row q tile), looping over
-//         the k tiles up to the diagonal; each warp keeps its 16 rows of dQ in
-//         accumulator fragments.
-// The tensor-core products are nvcuda::wmma bf16 16x16x16 with f32
-// accumulation, as in K1. wmma's accumulator layout is opaque, so each warp
-// stages S (and dP) through its own f32 shared-memory scratch for the
-// elementwise softmax-gradient step; p stays in registers between the two.
+// into kernels that each own what they write and sum it in a fixed order: no
+// atomics, and a rerun repeats bit for bit. The price is that the dq kernel
+// recomputes s and dp (7 products per pair where the bound counts 5). Three
+// launches on one stream (helpers in attn_sm90.cuh; mma.sync m16n8k16 bf16
+// with f32 sums throughout):
+//   delta: D/8 lanes per row, one 16-byte load of g and of out per lane, a
+//          shuffle sum; [B,H,S] f32.
+//   dkdv:  grid (batch*kv head, 64-row k tile), 4 warps, each owning 16 keys.
+//          k tile 0, which the most q tiles see under the causal mask, is
+//          launched first. The block loops over the H/Hkv query heads of its
+//          kv head and, for each, over the q tiles from the diagonal on
+//          (BQ = 64 rows at D = 64, 32 at D = 128); Q, dO, lse and delta
+//          arrive through a 2-stage cp.async ring, tile i+1 in flight while
+//          tile i is used. The warp computes the transposed products:
+//          S^T = K_w.Q^T and dP^T = V_w.dO^T with K_w and V_w as A fragments
+//          (held in registers for the whole loop at D = 64, read from shared
+//          memory per q tile at D = 128) and Q, dO as B fragments; then P^T
+//          and dS^T in the accumulator registers; rounded to bf16 they are the
+//          A fragments of dV_w += P^T.dO and dK_w += dS^T.Q (B fragments by
+//          ldmatrix.trans). So P and dS never leave registers, and dK, dV stay
+//          f32 in registers for the whole loop: GQA's sum over the repeat axis
+//          is f32, in registers.
+//   dq:    grid (batch*head, 64-row q tile), 4 warps of 16 query rows, last
+//          q tiles first. Q and dO are A fragments in registers, lse and
+//          delta per row in registers; K and V (BK = 64 keys at D = 64, 32
+//          at D = 128) arrive through a 2-stage cp.async ring. S and dP are
+//          register accumulators, dS is repacked into A fragments and
+//          dQ += dS.K takes K's B fragments from ldmatrix.trans.
+//   Epilogues write bf16 through the warp's own rows of a tile in shared
+//   memory, with 16-byte stores.
+// Tile sizes are set by registers: at D = 128 the dK and dV accumulators take
+// 128 f32 per thread, and Q, dO and dQ 128, so the q tile of dkdv and the k
+// tile of dq shrink to 32 there. Shared memory: dkdv 2*64*D*2 bytes of K and V
+// plus 2 stages of 2*BQ*D*2 bytes and 2*BQ*8 bytes of lse and delta (49 KB at
+// D = 64, 64.5 KB at D = 128); dq 2*64*D*2 bytes of Q and dO plus 2 stages of
+// 2*BK*D*2 (48 KB at D = 64, 64 KB at D = 128). Registers (ptxas, CUDA 12.8,
+// sm_90a; chip_smoke.py's build record prints them): dkdv 226 at D = 64 and
+// 246 at D = 128, dq 168 (capped for 3 blocks an SM, which also keeps ptxas
+// from spilling) and 234, delta 26; no spills.
 //
-// What bounds it on an H100: per (row, col) pair kept by the mask the
-// function needs 5 products of depth D (s, dp, dv, dk, dq: 10*D flops); at the
-// training shapes (S = T = 1024..2048, D = 64) that is far above the card's
-// ~295 flop/byte ridge, so the tensor cores bound it. This first design
-// recomputes s and dp in the dq kernel (7 products instead of 5), does no
-// cp.async/TMA pipelining and no wgmma: those are later work.
+// What this design does about the costs of the first, wmma-based design:
+// (1) S, dP, P and dS never go through shared memory (wmma's opaque layout
+// staged each through f32 scratch); (2) loads overlap products (cp.async
+// rings, where every tile waited between two barriers); (3) a row lives in a
+// quad of lanes and no f32 scratch tile exists: the D = 128 kernels fit in
+// registers without spilling (the first dkdv spilled 44 bytes there); (4)
+// the heaviest tiles are launched first in both grids, and a warp skips a
+// tile that lies wholly on the masked side of its diagonal; (5) delta is one
+// bf16 pass in a kernel, not four f32 passes and a transpose in PyTorch; the
+// dq pass's recompute stays, for determinism.
 //
 // Layouts ([B,S,H,D] or [B,H,S,D]) arrive as (batch, head, seq) strides; the
 // head dim must be contiguous and rows 16-byte aligned. lse and delta are
-// contiguous [B,H,S] f32. Ragged edges: rows past S or T load as zeros and
-// their p is 0. Plain C interface, loaded with ctypes; the entry point returns
-// cudaGetLastError() after each launch.
+// contiguous [B,H,S] f32. Ragged edges: rows past S or T load as zeros, pairs
+// past them are masked. Plain C interface, loaded with ctypes; the entry point
+// returns cudaGetLastError() after each launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <math.h>
 #include <stdint.h>
+#include <string.h>
 
-using namespace nvcuda;
+#include "attn_sm90.cuh"
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per q tile
-constexpr int BK = 64;  // key rows per k tile
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int HC = 32;  // columns of a warp's 16 x 64 tile held by one lane
+using namespace attn_sm90;
+using bf16 = __nv_bfloat16;
+
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Strides {
-  long long qb, qh, qs, kb, kh, ks, vb, vh, vs, gb, gh, gs;
+  long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os, gb, gh, gs;
   long long dqb, dqh, dqs, dkb, dkh, dks, dvb, dvh, dvs;
 };
 
+// ------------------------------------------------------------------ delta
+
 template <int D>
-struct Smem {
-  static constexpr int LDQ = D + 8;                   // bf16 row stride, Q/G/K/V tiles
-  static constexpr int LDP = 64 + 8;                  // bf16 row stride, a warp's P/dS tile
-  static constexpr int LDS = (D > 64 ? D : 64) + 4;   // f32 row stride, a warp's scratch
-  static constexpr int TILE = 64 * LDQ;
-  static constexpr int P_ELEMS = WARPS * 16 * LDP;
-  static constexpr size_t BYTES =
-      size_t(4 * TILE + P_ELEMS) * sizeof(__nv_bfloat16) +
-      size_t(WARPS * 16 * LDS + 2 * BQ) * sizeof(float);
+__global__ void __launch_bounds__(256)
+flash_bwd_delta_kernel(const bf16* __restrict__ out, const bf16* __restrict__ g,
+                       float* __restrict__ delta, int H, int S, long long rows, Strides st) {
+  constexpr int LPR = D / 8;  // lanes per row, 8 values each
+  constexpr int RPB = 256 / LPR;
+  const long long r = (long long)blockIdx.x * RPB + threadIdx.x / LPR;
+  const int c = (threadIdx.x % LPR) * 8;
+  float sum = 0.f;
+  if (r < rows) {
+    const int s = (int)(r % S);
+    const long long bh = r / S;
+    const int h = (int)(bh % H);
+    const long long b = bh / H;
+    const uint4 o4 = *reinterpret_cast<const uint4*>(out + b * st.ob + h * st.oh + s * st.os + c);
+    const uint4 g4 = *reinterpret_cast<const uint4*>(g + b * st.gb + h * st.gh + s * st.gs + c);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o4);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&g4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 of = __bfloat1622float2(o2[i]);
+      const float2 gf = __bfloat1622float2(g2[i]);
+      sum = fmaf(of.x, gf.x, sum);
+      sum = fmaf(of.y, gf.y, sum);
+    }
+  }
+#pragma unroll
+  for (int off = LPR / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (r < rows && threadIdx.x % LPR == 0) delta[r] = sum;
+}
+
+// ------------------------------------------------------------------ dk, dv
+
+template <int D>
+struct KV {
+  static constexpr int WARPS = 4;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BK = 16 * WARPS;         // keys per block, 16 per warp
+  static constexpr int BQ = D == 64 ? 64 : 32;  // query rows per ring stage
+  static constexpr int K_ELEMS = BK * D;
+  static constexpr int Q_ELEMS = BQ * D;
+  static constexpr size_t SMEM =
+      size_t(2 * K_ELEMS + 4 * Q_ELEMS) * sizeof(bf16) + size_t(4 * BQ) * sizeof(float);
 };
 
-// 64 rows x D columns from global (row stride `stride` elements) into shared
-// memory (row stride D + 8); rows at or past `nrows` are zero-filled.
 template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long stride, int r0, int nrows) {
-  constexpr int VEC = 8;  // bf16 values per 16-byte load
-  constexpr int PER_ROW = D / VEC;
-#pragma unroll
-  for (int i = threadIdx.x; i < 64 * PER_ROW; i += THREADS) {
-    const int rr = i / PER_ROW;
-    const int cc = (i % PER_ROW) * VEC;
-    const int gr = r0 + rr;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < nrows) val = *reinterpret_cast<const uint4*>(src + gr * stride + cc);
-    *reinterpret_cast<uint4*>(dst + rr * (D + 8) + cc) = val;
+__device__ __forceinline__ void dkdv_issue(bf16* sQ, bf16* sG, float* sL, float* sDl,
+                                           const bf16* q, const bf16* g, const float* lse,
+                                           const float* delta, const Strides& st, int b, int h,
+                                           int H, int S, int q0) {
+  using P = KV<D>;
+  load_tile_async<P::BQ, D, P::THREADS>(sQ, q + b * st.qb + h * st.qh, st.qs, q0, S);
+  load_tile_async<P::BQ, D, P::THREADS>(sG, g + b * st.gb + h * st.gh, st.gs, q0, S);
+  if (threadIdx.x < P::BQ) {
+    const int row = q0 + threadIdx.x;
+    const bool ok = row < S;
+    const long long at = ((long long)b * H + h) * S + (ok ? row : 0);
+    cp_async_4(smem_u32(sL + threadIdx.x), lse + at, ok);
+    cp_async_4(smem_u32(sDl + threadIdx.x), delta + at, ok);
   }
 }
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// out [16 x 64] (f32, row stride LDS) = A [16 x D] . B^T, where A's 16 rows
-// and B's 64 rows are row-major bf16 tiles in shared memory (row stride LDQ).
 template <int D>
-__device__ __forceinline__ void rows_dot_rowsT(float* out, const __nv_bfloat16* a,
-                                               const __nv_bfloat16* b) {
-  using SM = Smem<D>;
-#pragma unroll
-  for (int n = 0; n < 64 / 16; ++n) {
-    FragC c;
-    wmma::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragA fa;
-      FragBCol fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, SM::LDQ);
-      wmma::load_matrix_sync(fb, b + (n * 16) * SM::LDQ + kk * 16, SM::LDQ);
-      wmma::mma_sync(c, fa, fb, c);
-    }
-    wmma::store_matrix_sync(out + n * 16, c, SM::LDS, wmma::mem_row_major);
-  }
-}
-
-// acc[n] (16 x D, as D/16 fragments) += P [16 x 64] (bf16, row stride LDP) .
-// B [64 x D] (bf16 tile, row stride LDQ).
-template <int D>
-__device__ __forceinline__ void acc_p_dot_tile(FragC* acc, const __nv_bfloat16* p,
-                                               const __nv_bfloat16* b) {
-  using SM = Smem<D>;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-#pragma unroll
-    for (int kk = 0; kk < 64 / 16; ++kk) {
-      FragA fa;
-      FragBRow fb;
-      wmma::load_matrix_sync(fa, p + kk * 16, SM::LDP);
-      wmma::load_matrix_sync(fb, b + (kk * 16) * SM::LDQ + n * 16, SM::LDQ);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-}
-
-// Writes a warp's 16 x D accumulator rows to global bf16 through its f32
-// scratch: lane pair (2r, 2r+1) writes row r, half of the columns each.
-template <int D>
-__device__ __forceinline__ void store_rows(FragC* acc, float* sW, __nv_bfloat16* dst,
-                                           long long row_stride, int row0, int nrows) {
-  using SM = Smem<D>;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(sW + n * 16, acc[n], SM::LDS, wmma::mem_row_major);
-  __syncwarp();
-  const int lane = threadIdx.x & 31;
-  const int r = lane >> 1;
-  const int d0 = (lane & 1) * (D / 2);
-  const int row = row0 + r;
-  if (row < nrows) {
-    __nv_bfloat16* out = dst + row * row_stride + d0;
-#pragma unroll
-    for (int c = 0; c < D / 2; c += 8) {
-      __align__(16) __nv_bfloat16 pack[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) pack[e] = __float2bfloat16(sW[r * SM::LDS + d0 + c + e]);
-      *reinterpret_cast<uint4*>(out + c) = *reinterpret_cast<const uint4*>(pack);
-    }
-  }
-  __syncwarp();
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
+__global__ void __launch_bounds__(KV<D>::THREADS)
+flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ g,
                       const float* __restrict__ lse, const float* __restrict__ delta,
-                      __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int H,
-                      int Hkv, int S, int T, Strides st, float scale, int causal) {
-  using SM = Smem<D>;
+                      bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Hkv, int S,
+                      int T, Strides st, float scale, int causal) {
+  using P = KV<D>;
+  constexpr int BQ = P::BQ;
+  constexpr int BK = P::BK;
+  constexpr int THREADS = P::THREADS;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sG = sQ + SM::TILE;
-  __nv_bfloat16* sK = sG + SM::TILE;
-  __nv_bfloat16* sV = sK + SM::TILE;
-  __nv_bfloat16* sP = sV + SM::TILE;
-  float* sS = reinterpret_cast<float*>(sP + SM::P_ELEMS);
-  float* sL = sS + WARPS * 16 * SM::LDS;
-  float* sDl = sL + BQ;
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sV = sK + P::K_ELEMS;
+  bf16* sQ = sV + P::K_ELEMS;       // [2][BQ, D]
+  bf16* sG = sQ + 2 * P::Q_ELEMS;   // [2][BQ, D]
+  float* sL = reinterpret_cast<float*>(sG + 2 * P::Q_ELEMS);  // [2][BQ]
+  float* sDl = sL + 2 * BQ;                                   // [2][BQ]
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int kt = blockIdx.x;
-  const int k0 = kt * BK;
-  const int b = blockIdx.y / Hkv;
-  const int hk = blockIdx.y % Hkv;
+  const int gq = lane >> 2;
+  const int t = lane & 3;
+  const int b = blockIdx.x / Hkv;
+  const int hk = blockIdx.x % Hkv;
+  const int k0 = blockIdx.y * BK;  // k tile 0 first: it has the most q tiles
   const int rep = H / Hkv;
+  const int kw = k0 + warp * 16;   // this warp's first key
+  const float scale_log2 = scale * LOG2E;
 
-  load_tile<D>(sK, k + b * st.kb + hk * st.kh, st.ks, k0, T);
-  load_tile<D>(sV, v + b * st.vb + hk * st.vh, st.vs, k0, T);
-
-  // Lane pair (2r, 2r+1) owns k row r of the warp's 16; each lane holds half
-  // of that row's 64 q columns.
-  const int r = lane >> 1;
-  const int c0 = (lane & 1) * HC;
-  const int krow = k0 + warp * 16 + r;
-  __nv_bfloat16* pW = sP + warp * 16 * SM::LDP;
-  float* sW = sS + warp * 16 * SM::LDS;
-  const __nv_bfloat16* kW = sK + warp * 16 * SM::LDQ;
-  const __nv_bfloat16* vW = sV + warp * 16 * SM::LDQ;
-
-  FragC dk_acc[D / 16], dv_acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fill_fragment(dk_acc[n], 0.f);
-    wmma::fill_fragment(dv_acc[n], 0.f);
-  }
+  load_tile_async<BK, D, THREADS>(sK, k + b * st.kb + hk * st.kh, st.ks, k0, T);
+  load_tile_async<BK, D, THREADS>(sV, v + b * st.vb + hk * st.vh, st.vs, k0, T);
+  cp_async_commit();
 
   const int nq = (S + BQ - 1) / BQ;
-  // BQ == BK: with top-left causal masking, q tiles before this k tile's own
-  // index hold only rows that see none of its columns and are skipped.
-  const int i0 = causal ? kt : 0;
-  for (int hr = 0; hr < rep; ++hr) {
-    const int h = hk * rep + hr;
-    const __nv_bfloat16* qbh = q + b * st.qb + h * st.qh;
-    const __nv_bfloat16* gbh = g + b * st.gb + h * st.gh;
-    const float* lse_h = lse + ((long long)b * H + h) * S;
-    const float* delta_h = delta + ((long long)b * H + h) * S;
-    for (int i = i0; i < nq; ++i) {
-      const int q0 = i * BQ;
-      __syncthreads();  // every warp is done with the previous Q/G tile
-      load_tile<D>(sQ, qbh, st.qs, q0, S);
-      load_tile<D>(sG, gbh, st.gs, q0, S);
-      if (threadIdx.x < BQ) {
-        const int row = q0 + threadIdx.x;
-        sL[threadIdx.x] = row < S ? lse_h[row] : 0.f;
-        sDl[threadIdx.x] = row < S ? delta_h[row] : 0.f;
-      }
-      __syncthreads();
+  // Top-left causal: rows before k0 see none of this tile's keys.
+  const int i0 = causal ? min(nq, k0 / BQ) : 0;
+  const int per_head = nq - i0;
+  const int n_iter = rep * per_head;
+  if (n_iter > 0) dkdv_issue<D>(sQ, sG, sL, sDl, q, g, lse, delta, st, b, hk * rep, H, S, i0 * BQ);
+  cp_async_commit();
 
-      // S^T_w [16 k x 64 q] = K_w . Q^T
-      rows_dot_rowsT<D>(sW, kW, sQ);
-      __syncwarp();
-      float pv[HC];
+  // At D = 64 the warp's K and V rows live in registers as A fragments for
+  // the whole loop; at D = 128 the registers go to dK and dV, and the
+  // fragments are read from shared memory for each q tile.
+  const uint32_t off_a = lane_off_a<D>(lane);
+  const uint32_t off_br = lane_off_b_rows<D>(lane);
+  const uint32_t off_bc = lane_off_b_cols<D>(lane);
+  const uint32_t uK = smem_u32(sK);
+  const uint32_t uV = smem_u32(sV);
+  constexpr bool KV_IN_REGS = D == 64;
+  uint32_t kf[KV_IN_REGS ? D / 16 : 1][4], vf[KV_IN_REGS ? D / 16 : 1][4];
+  if constexpr (KV_IN_REGS) {
+    cp_async_wait<1>();
+    __syncthreads();
 #pragma unroll
-      for (int c = 0; c < HC; ++c) {
-        const int qc = c0 + c;
-        const int qrow = q0 + qc;
-        const bool keep = qrow < S && krow < T && !(causal && krow > qrow);
-        const float p = keep ? expf(sW[r * SM::LDS + qc] * scale - sL[qc]) : 0.f;
-        pv[c] = p;
-        pW[r * SM::LDP + qc] = __float2bfloat16(p);
-      }
-      __syncwarp();
-      // dV_w += P^T_w . G
-      acc_p_dot_tile<D>(dv_acc, pW, sG);
-      // dP^T_w [16 k x 64 q] = V_w . G^T
-      rows_dot_rowsT<D>(sW, vW, sG);
-      __syncwarp();
-#pragma unroll
-      for (int c = 0; c < HC; ++c) {
-        const int qc = c0 + c;
-        const float ds = pv[c] * (sW[r * SM::LDS + qc] - sDl[qc]) * scale;
-        pW[r * SM::LDP + qc] = __float2bfloat16(ds);
-      }
-      __syncwarp();
-      // dK_w += dS^T_w . Q
-      acc_p_dot_tile<D>(dk_acc, pW, sQ);
-      __syncwarp();
+    for (int kk = 0; kk < D / 16; ++kk) {
+      load_a<D>(kf[kk], uK, off_a, warp * 16, kk * 16);
+      load_a<D>(vf[kk], uV, off_a, warp * 16, kk * 16);
     }
   }
-  store_rows<D>(dk_acc, sW, dk + b * st.dkb + hk * st.dkh, st.dks, k0 + warp * 16, T);
-  store_rows<D>(dv_acc, sW, dv + b * st.dvb + hk * st.dvh, st.dvs, k0 + warp * 16, T);
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  }
+
+  for (int it = 0; it < n_iter; ++it) {
+    if (it + 1 < n_iter) {
+      const int nxt = (it + 1) & 1;
+      const int hn = hk * rep + (it + 1) / per_head;
+      const int qn = (i0 + (it + 1) % per_head) * BQ;
+      dkdv_issue<D>(sQ + nxt * P::Q_ELEMS, sG + nxt * P::Q_ELEMS, sL + nxt * BQ,
+                    sDl + nxt * BQ, q, g, lse, delta, st, b, hn, H, S, qn);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const int q0 = (i0 + it % per_head) * BQ;
+    if (!(causal && q0 + BQ - 1 < kw)) {  // else every row of the tile precedes the warp's keys
+      const int cur = it & 1;
+      const uint32_t cQ = smem_u32(sQ + cur * P::Q_ELEMS);
+      const uint32_t cG = smem_u32(sG + cur * P::Q_ELEMS);
+      const float* cL = sL + cur * BQ;
+      const float* cDl = sDl + cur * BQ;
+
+      // S^T = K_w . Q^T and dP^T = V_w . dO^T, [16 keys, BQ rows].
+      float sT[BQ / 8][4], dpT[BQ / 8][4];
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sT[n][e] = dpT[n][e] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t ak[4], av[4];
+        if constexpr (KV_IN_REGS) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            ak[i] = kf[kk][i];
+            av[i] = vf[kk][i];
+          }
+        } else {
+          load_a<D>(ak, uK, off_a, warp * 16, kk * 16);
+          load_a<D>(av, uV, off_a, warp * 16, kk * 16);
+        }
+#pragma unroll
+        for (int np = 0; np < BQ / 16; ++np) {
+          uint32_t bq[4], bg[4];
+          load_b_rows<D>(bq, cQ, off_br, np * 16, kk * 16);
+          load_b_rows<D>(bg, cG, off_br, np * 16, kk * 16);
+          mma_16816(sT[2 * np], ak, bq[0], bq[1]);
+          mma_16816(sT[2 * np + 1], ak, bq[2], bq[3]);
+          mma_16816(dpT[2 * np], av, bg[0], bg[1]);
+          mma_16816(dpT[2 * np + 1], av, bg[2], bg[3]);
+        }
+      }
+
+      // P^T and dS^T in place; element (key kw + gq + 8*(e/2), row q0 + col).
+      const bool edge = (causal && q0 < kw + 15) || q0 + BQ > S;
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n) {
+        const int col = n * 8 + 2 * t;
+        const float2 L = *reinterpret_cast<const float2*>(cL + col);
+        const float2 Dl = *reinterpret_cast<const float2*>(cDl + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lse_e = (e & 1) ? L.y : L.x;
+          const float dl_e = (e & 1) ? Dl.y : Dl.x;
+          float p = fast_exp2(fmaf(sT[n][e], scale_log2, -lse_e * LOG2E));
+          if (edge) {
+            const int row = q0 + col + (e & 1);
+            const int key = kw + gq + (e >> 1) * 8;
+            if (row >= S || (causal && key > row)) p = 0.f;
+          }
+          sT[n][e] = p;
+          dpT[n][e] = p * (dpT[n][e] - dl_e) * scale;
+        }
+      }
+
+      // dV_w += P^T . dO and dK_w += dS^T . Q, A fragments from registers.
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        uint32_t ap[4], ads[4];
+        a_from_c(ap, sT[2 * kk], sT[2 * kk + 1]);
+        a_from_c(ads, dpT[2 * kk], dpT[2 * kk + 1]);
+#pragma unroll
+        for (int np = 0; np < D / 16; ++np) {
+          uint32_t bg[4], bq[4];
+          load_b_cols<D>(bg, cG, off_bc, kk * 16, np * 16);
+          load_b_cols<D>(bq, cQ, off_bc, kk * 16, np * 16);
+          mma_16816(dv_acc[2 * np], ap, bg[0], bg[1]);
+          mma_16816(dv_acc[2 * np + 1], ap, bg[2], bg[3]);
+          mma_16816(dk_acc[2 * np], ads, bq[0], bq[1]);
+          mma_16816(dk_acc[2 * np + 1], ads, bq[2], bq[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  cp_async_wait<0>();  // with no q tile, the K/V copies may still be landing
+  __syncthreads();
+  // The warp's own rows of the K and V tiles are free now.
+  stage_rows<D>(sK, dk_acc, warp * 16, 1.f, 1.f, lane);
+  stage_rows<D>(sV, dv_acc, warp * 16, 1.f, 1.f, lane);
+  __syncwarp();
+  store_rows<D>(dk + b * st.dkb + hk * st.dkh, st.dks, sK, warp * 16, kw, T, lane);
+  store_rows<D>(dv + b * st.dvb + hk * st.dvh, st.dvs, sV, warp * 16, kw, T, lane);
 }
 
+// ------------------------------------------------------------------ dq
+
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
+struct Q {
+  static constexpr int WARPS = 4;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BQ = 16 * WARPS;         // query rows per block, 16 per warp
+  static constexpr int BK = D == 64 ? 64 : 32;  // keys per ring stage
+  static constexpr int Q_ELEMS = BQ * D;
+  static constexpr int K_ELEMS = BK * D;
+  static constexpr size_t SMEM = size_t(2 * Q_ELEMS + 4 * K_ELEMS) * sizeof(bf16);
+};
+
+// At D = 64, 3 blocks an SM (at most 168 registers) fit without spilling.
+template <int D>
+__global__ void __launch_bounds__(Q<D>::THREADS, D == 64 ? 3 : 1)
+flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ g,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dq, int H, int Hkv, int S, int T, Strides st,
+                    bf16* __restrict__ dq, int H, int Hkv, int S, int T, Strides st,
                     float scale, int causal) {
-  using SM = Smem<D>;
+  using P = Q<D>;
+  constexpr int BQ = P::BQ;
+  constexpr int BK = P::BK;
+  constexpr int THREADS = P::THREADS;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sG = sQ + SM::TILE;
-  __nv_bfloat16* sK = sG + SM::TILE;
-  __nv_bfloat16* sV = sK + SM::TILE;
-  __nv_bfloat16* sP = sV + SM::TILE;
-  float* sS = reinterpret_cast<float*>(sP + SM::P_ELEMS);
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sG = sQ + P::Q_ELEMS;
+  bf16* sK = sG + P::Q_ELEMS;       // [2][BK, D]
+  bf16* sV = sK + 2 * P::K_ELEMS;   // [2][BK, D]
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int qt = blockIdx.x;
-  const int q0 = qt * BQ;
-  const int bh = blockIdx.y;
+  const int gq = lane >> 2;
+  const int t = lane & 3;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // last q tiles first
   const int b = bh / H;
   const int h = bh % H;
   const int hk = h / (H / Hkv);
+  const int qw = q0 + warp * 16;  // this warp's first query row
+  const float scale_log2 = scale * LOG2E;
 
-  load_tile<D>(sQ, q + b * st.qb + h * st.qh, st.qs, q0, S);
-  load_tile<D>(sG, g + b * st.gb + h * st.gh, st.gs, q0, S);
-  const __nv_bfloat16* kb = k + b * st.kb + hk * st.kh;
-  const __nv_bfloat16* vb = v + b * st.vb + hk * st.vh;
+  const bf16* kb = k + b * st.kb + hk * st.kh;
+  const bf16* vb = v + b * st.vb + hk * st.vh;
+  load_tile_async<BQ, D, THREADS>(sQ, q + b * st.qb + h * st.qh, st.qs, q0, S);
+  load_tile_async<BQ, D, THREADS>(sG, g + b * st.gb + h * st.gh, st.gs, q0, S);
+  cp_async_commit();
+  load_tile_async<BK, D, THREADS>(sK, kb, st.ks, 0, T);
+  load_tile_async<BK, D, THREADS>(sV, vb, st.vs, 0, T);
+  cp_async_commit();
 
-  // Lane pair (2r, 2r+1) owns q row r of the warp's 16.
-  const int r = lane >> 1;
-  const int c0 = (lane & 1) * HC;
-  const int row = q0 + warp * 16 + r;
-  const float lse_r = row < S ? lse[(long long)bh * S + row] : 0.f;
-  const float delta_r = row < S ? delta[(long long)bh * S + row] : 0.f;
-  __nv_bfloat16* pW = sP + warp * 16 * SM::LDP;
-  float* sW = sS + warp * 16 * SM::LDS;
-  const __nv_bfloat16* qW = sQ + warp * 16 * SM::LDQ;
-  const __nv_bfloat16* gW = sG + warp * 16 * SM::LDQ;
-
-  FragC dq_acc[D / 16];
+  // lse (as a log2 offset) and delta of rows gq and gq + 8.
+  float lse2[2], dl[2];
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(dq_acc[n], 0.f);
+  for (int i = 0; i < 2; ++i) {
+    const int row = qw + gq + 8 * i;
+    const long long at = (long long)bh * S + row;
+    lse2[i] = row < S ? lse[at] * LOG2E : 0.f;
+    dl[i] = row < S ? delta[at] : 0.f;
+  }
+
+  const uint32_t off_a = lane_off_a<D>(lane);
+  const uint32_t off_br = lane_off_b_rows<D>(lane);
+  const uint32_t off_bc = lane_off_b_cols<D>(lane);
+  cp_async_wait<1>();
+  __syncthreads();
+  uint32_t qf[D / 16][4], gf[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    load_a<D>(qf[kk], smem_u32(sQ), off_a, warp * 16, kk * 16);
+    load_a<D>(gf[kk], smem_u32(sG), off_a, warp * 16, kk * 16);
+  }
+
+  float dq_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) dq_acc[n][0] = dq_acc[n][1] = dq_acc[n][2] = dq_acc[n][3] = 0.f;
 
   const int n_kt = (T + BK - 1) / BK;
-  const int n_visible = causal ? min(n_kt, qt + 1) : n_kt;
+  const int n_visible = causal ? min(n_kt, (q0 + BQ - 1) / BK + 1) : n_kt;
   for (int j = 0; j < n_visible; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(sK, kb, st.ks, k0, T);
-    load_tile<D>(sV, vb, st.vs, k0, T);
+    if (j + 1 < n_visible) {
+      const int nxt = (j + 1) & 1;
+      load_tile_async<BK, D, THREADS>(sK + nxt * P::K_ELEMS, kb, st.ks, (j + 1) * BK, T);
+      load_tile_async<BK, D, THREADS>(sV + nxt * P::K_ELEMS, vb, st.vs, (j + 1) * BK, T);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
 
-    // S_w [16 q x 64 k] = Q_w . K^T
-    rows_dot_rowsT<D>(sW, qW, sK);
-    __syncwarp();
-    float pv[HC];
+    const int k0 = j * BK;
+    if (!(causal && k0 > qw + 15)) {  // else the whole tile is above this warp's diagonal
+      const uint32_t cK = smem_u32(sK + (j & 1) * P::K_ELEMS);
+      const uint32_t cV = smem_u32(sV + (j & 1) * P::K_ELEMS);
+
+      // S = Q_w . K^T and dP = dO_w . V^T, [16 rows, BK keys].
+      float s[BK / 8][4], dp[BK / 8][4];
 #pragma unroll
-    for (int c = 0; c < HC; ++c) {
-      const int col = k0 + c0 + c;
-      const bool keep = row < S && col < T && !(causal && col > row);
-      pv[c] = keep ? expf(sW[r * SM::LDS + c0 + c] * scale - lse_r) : 0.f;
-    }
-    __syncwarp();
-    // dP_w [16 q x 64 k] = G_w . V^T
-    rows_dot_rowsT<D>(sW, gW, sV);
-    __syncwarp();
+      for (int n = 0; n < BK / 8; ++n) {
 #pragma unroll
-    for (int c = 0; c < HC; ++c) {
-      const float ds = pv[c] * (sW[r * SM::LDS + c0 + c] - delta_r) * scale;
-      pW[r * SM::LDP + c0 + c] = __float2bfloat16(ds);
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+        for (int np = 0; np < BK / 16; ++np) {
+          uint32_t bk[4], bv[4];
+          load_b_rows<D>(bk, cK, off_br, np * 16, kk * 16);
+          load_b_rows<D>(bv, cV, off_br, np * 16, kk * 16);
+          mma_16816(s[2 * np], qf[kk], bk[0], bk[1]);
+          mma_16816(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+          mma_16816(dp[2 * np], gf[kk], bv[0], bv[1]);
+          mma_16816(dp[2 * np + 1], gf[kk], bv[2], bv[3]);
+        }
+      }
+
+      const bool edge = k0 + BK > T || (causal && k0 + BK - 1 > qw);
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = fast_exp2(fmaf(s[n][e], scale_log2, -lse2[e >> 1]));
+          if (edge) {
+            const int col = k0 + n * 8 + 2 * t + (e & 1);
+            const int row = qw + gq + (e >> 1) * 8;
+            if (col >= T || (causal && col > row)) p = 0.f;
+          }
+          dp[n][e] = p * (dp[n][e] - dl[e >> 1]) * scale;
+        }
+      }
+
+      // dQ_w += dS . K, dS from registers.
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t a[4];
+        a_from_c(a, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int np = 0; np < D / 16; ++np) {
+          uint32_t bk[4];
+          load_b_cols<D>(bk, cK, off_bc, kk * 16, np * 16);
+          mma_16816(dq_acc[2 * np], a, bk[0], bk[1]);
+          mma_16816(dq_acc[2 * np + 1], a, bk[2], bk[3]);
+        }
+      }
     }
-    __syncwarp();
-    // dQ_w += dS_w . K
-    acc_p_dot_tile<D>(dq_acc, pW, sK);
-    __syncwarp();
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
-  store_rows<D>(dq_acc, sW, dq + b * st.dqb + h * st.dqh, st.dqs, q0 + warp * 16, S);
+
+  // The warp's own rows of the Q tile are free once Q is in registers.
+  stage_rows<D>(sQ, dq_acc, warp * 16, 1.f, 1.f, lane);
+  __syncwarp();
+  store_rows<D>(dq + b * st.dqb + h * st.dqh, st.dqs, sQ, warp * 16, qw, S, lane);
 }
+
+// ------------------------------------------------------------------ launch
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
@@ -357,11 +498,10 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
-                   const void* lse, const void* delta, void* dq, void* dk, void* dv, int B,
-                   int H, int Hkv, int S, int T, const Strides& st, float scale, int causal,
+cudaError_t launch(const void* q, const void* k, const void* v, const void* out, const void* g,
+                   const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int H,
+                   int Hkv, int S, int T, const Strides& st, float scale, int causal,
                    cudaStream_t stream) {
-  const size_t smem = Smem<D>::BYTES;
   // Above 48 KB of dynamic shared memory needs the opt-in, once per device
   // and kernel; setting it twice from racing threads is harmless.
   static int configured_device = -1;
@@ -369,47 +509,76 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (configured_device != device) {
-    err = allow_smem(flash_bwd_dkdv_kernel<D>, smem);
+    err = allow_smem(flash_bwd_dkdv_kernel<D>, KV<D>::SMEM);
     if (err != cudaSuccess) return err;
-    err = allow_smem(flash_bwd_dq_kernel<D>, smem);
+    err = allow_smem(flash_bwd_dq_kernel<D>, Q<D>::SMEM);
     if (err != cudaSuccess) return err;
     configured_device = device;
   }
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  const auto* gp = static_cast<const __nv_bfloat16*>(g);
+  const auto* qp = static_cast<const bf16*>(q);
+  const auto* kp = static_cast<const bf16*>(k);
+  const auto* vp = static_cast<const bf16*>(v);
+  const auto* gp = static_cast<const bf16*>(g);
   const auto* lp = static_cast<const float*>(lse);
-  const auto* dp = static_cast<const float*>(delta);
-  dim3 grid_kv((T + BK - 1) / BK, B * Hkv);
-  flash_bwd_dkdv_kernel<D><<<grid_kv, THREADS, smem, stream>>>(
-      qp, kp, vp, gp, lp, dp, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-      H, Hkv, S, T, st, scale, causal);
+  auto* dp = static_cast<float*>(delta);
+
+  const long long rows = (long long)B * H * S;
+  constexpr int RPB = 256 / (D / 8);
+  flash_bwd_delta_kernel<D><<<(unsigned)((rows + RPB - 1) / RPB), 256, 0, stream>>>(
+      static_cast<const bf16*>(out), gp, dp, H, S, rows, st);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dim3 grid_q((S + BQ - 1) / BQ, B * H);
-  flash_bwd_dq_kernel<D><<<grid_q, THREADS, smem, stream>>>(
-      qp, kp, vp, gp, lp, dp, static_cast<__nv_bfloat16*>(dq), H, Hkv, S, T, st, scale, causal);
+
+  dim3 grid_kv(B * Hkv, (T + KV<D>::BK - 1) / KV<D>::BK);
+  flash_bwd_dkdv_kernel<D><<<grid_kv, KV<D>::THREADS, KV<D>::SMEM, stream>>>(
+      qp, kp, vp, gp, lp, dp, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Hkv, S, T, st,
+      scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  dim3 grid_q(B * H, (S + Q<D>::BQ - 1) / Q<D>::BQ);
+  flash_bwd_dq_kernel<D><<<grid_q, Q<D>::THREADS, Q<D>::SMEM, stream>>>(
+      qp, kp, vp, gp, lp, dp, static_cast<bf16*>(dq), H, Hkv, S, T, st, scale, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int ray_tpu_torch_flash_bwd(
-    const void* q, const void* k, const void* v, const void* g, const void* lse,
-    const void* delta, void* dq, void* dk, void* dv, int B, int H, int Hkv, int S, int T, int D,
-    long long qb, long long qh, long long qs, long long kb, long long kh, long long ks,
-    long long vb, long long vh, long long vs, long long gb, long long gh, long long gs,
-    long long dqb, long long dqh, long long dqs, long long dkb, long long dkh, long long dks,
-    long long dvb, long long dvh, long long dvs, float scale, int causal, void* stream) {
-  const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, gb, gh, gs,
-                   dqb, dqh, dqs, dkb, dkh, dks, dvb, dvh, dvs};
+// The launch's arguments in one block, 8 bytes a field, packed by the caller
+// (ops/attention.py, `_BWD_ARGS`).
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* out;
+  const void* g;
+  const void* lse;
+  void* delta;
+  void* dq;
+  void* dk;
+  void* dv;
+  long long B, H, Hkv, S, T, D;
+  Strides st;  // q, k, v, out, g, dq, dk, dv: (batch, head, seq) each
+  double scale;
+  long long causal;
+};
+static_assert(sizeof(BwdArgs) == 42 * 8, "BwdArgs must match ops/attention.py:_BWD_ARGS");
+
+extern "C" int ray_tpu_torch_flash_bwd(const void* packed, void* stream) {
+  BwdArgs args;  // copied out: the caller's buffer need not be 8-byte aligned
+  memcpy(&args, packed, sizeof args);
+  const BwdArgs* a = &args;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int B = (int)a->B, H = (int)a->H, Hkv = (int)a->Hkv, S = (int)a->S, T = (int)a->T;
+  const float scale = (float)a->scale;
+  const int causal = (int)a->causal;
   cudaError_t err;
-  if (D == 64) {
-    err = launch<64>(q, k, v, g, lse, delta, dq, dk, dv, B, H, Hkv, S, T, st, scale, causal, s);
-  } else if (D == 128) {
-    err = launch<128>(q, k, v, g, lse, delta, dq, dk, dv, B, H, Hkv, S, T, st, scale, causal, s);
+  if (a->D == 64) {
+    err = launch<64>(a->q, a->k, a->v, a->out, a->g, a->lse, a->delta, a->dq, a->dk, a->dv, B,
+                     H, Hkv, S, T, a->st, scale, causal, s);
+  } else if (a->D == 128) {
+    err = launch<128>(a->q, a->k, a->v, a->out, a->g, a->lse, a->delta, a->dq, a->dk, a->dv, B,
+                      H, Hkv, S, T, a->st, scale, causal, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -8,19 +8,25 @@ the Pallas kernels in interpret mode (`_flash_forward(..., interpret=True)`,
 tests/test_jax_stack.py holds the Pallas kernels: 2e-5 forward, 5e-4
 backward. The kernels themselves run only on the GPU (`cuda`-marked tests
 below; `python3 chip_smoke.py` holds them at the serving and training
-shapes).
+shapes). A GPU machine without JAX runs those alone:
+`python3 -m pytest --noconftest -m cuda tests/test_torch_attention.py`.
 """
 
 import ast
 import os
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from ray_tpu.ops import attention as jattn
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from ray_tpu.ops import attention as jattn
+except ImportError:  # a GPU machine without JAX: only the `cuda` tests run there
+    jax = jnp = jattn = None
+
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.ops import attention as tattn
 
@@ -208,46 +214,82 @@ def test_port_imports_nothing_of_jax_or_ray_tpu():
     assert not offenders, offenders
 
 
+# Edge cases of the kernels' tiling (64-row q and k tiles, 32 at D = 128 in
+# parts of K2, 16 rows per warp): S and T off every tile size, one and
+# sixteen rows, S != T both ways, no mask, both layouts, D 64 and 128, GQA
+# 32/8 and MHA. (B, S, T, H, Hkv, D, causal, layout).
+KERNEL_EDGE_CASES = [
+    (1, 100, 100, 8, 2, 64, True, "bshd"),
+    (1, 17, 17, 32, 8, 64, True, "bhsd"),
+    (2, 100, 100, 8, 8, 128, True, "bshd"),
+    (1, 130, 130, 32, 8, 128, False, "bhsd"),
+    (1, 200, 200, 12, 12, 64, False, "bshd"),
+    (1, 200, 200, 32, 8, 128, True, "bhsd"),
+    (1, 1, 1, 32, 8, 128, True, "bshd"),
+    (2, 16, 16, 32, 8, 64, True, "bhsd"),
+    (1, 1, 130, 8, 8, 64, False, "bhsd"),
+    (1, 17, 200, 32, 8, 128, True, "bshd"),
+    (1, 200, 17, 12, 12, 64, True, "bhsd"),
+    (1, 130, 100, 32, 8, 64, False, "bshd"),
+]
+
+
+def _kernel_inputs(B, S, T, H, Hkv, D, layout, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if layout == "bshd":
+        qs, ks = (B, S, H, D), (B, T, Hkv, D)
+    else:
+        qs, ks = (B, H, S, D), (B, Hkv, T, D)
+    return [torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)
+            for shape in (qs, ks, ks, qs)]
+
+
 @pytest.mark.cuda
-def test_flash_kernel_matches_reference_on_card():
+@pytest.mark.parametrize("B,S,T,H,Hkv,D,causal,layout", KERNEL_EDGE_CASES)
+def test_flash_kernel_matches_reference_on_card(B, S, T, H, Hkv, D, causal, layout):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the K1 kernel has no CPU mode")
-    B, S, H, Hkv, D = 1, 100, 8, 2, 64
-    g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)
-               for shape in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    q, k, v, _ = _kernel_inputs(B, S, T, H, Hkv, D, layout, seed=S + T + D)
+    scale = D ** -0.5
     before = tattn.LAUNCHES["flash_fwd"]
-    out, lse = tattn.flash_forward(q, k, v, causal=True, scale=D ** -0.5)
+    out, lse = tattn.flash_forward(q, k, v, causal=causal, scale=scale, layout=layout)
     assert tattn.LAUNCHES["flash_fwd"] == before + 1
-    ref_out, ref_lse = tattn.flash_forward_reference(q, k, v, causal=True, scale=D ** -0.5)
+    ref_out, ref_lse = tattn.flash_forward_reference(q, k, v, causal=causal, scale=scale,
+                                                     layout=layout)
+    assert out.shape == ref_out.shape and lse.shape == ref_lse.shape
+    # chip_smoke.py's limits, with their reasons there.
     torch.testing.assert_close(out.float(), ref_out.float(), atol=1e-2, rtol=1e-2)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
     with pytest.raises(TypeError):
-        tattn.flash_forward(q.float(), k.float(), v.float(), causal=True, scale=1.0)
+        tattn.flash_forward(q.float(), k.float(), v.float(), causal=True, scale=1.0,
+                            layout=layout)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
-def test_flash_backward_kernel_matches_reference_on_card(layout):
+@pytest.mark.parametrize("B,S,T,H,Hkv,D,causal,layout", KERNEL_EDGE_CASES)
+def test_flash_backward_kernel_matches_reference_on_card(B, S, T, H, Hkv, D, causal, layout):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the K2 kernel has no CPU mode")
-    B, S, H, Hkv, D = 1, 100, 8, 2, 64
-    g = torch.Generator(device="cuda").manual_seed(1)
-    qs, ks = ((B, S, H, D), (B, S, Hkv, D)) if layout == "bshd" else ((B, H, S, D), (B, Hkv, S, D))
-    q, k, v, go = (torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)
-                   for shape in (qs, ks, ks, qs))
-    out, lse = tattn.flash_forward(q, k, v, causal=True, scale=D ** -0.5, layout=layout)
+    q, k, v, go = _kernel_inputs(B, S, T, H, Hkv, D, layout, seed=1 + S + T + D)
+    scale = D ** -0.5
+    out, lse = tattn.flash_forward(q, k, v, causal=causal, scale=scale, layout=layout)
     before = tattn.LAUNCHES["flash_bwd"]
-    grads = tattn.flash_backward(q, k, v, out, lse, go, causal=True, scale=D ** -0.5,
+    grads = tattn.flash_backward(q, k, v, out, lse, go, causal=causal, scale=scale,
                                  layout=layout)
     assert tattn.LAUNCHES["flash_bwd"] == before + 1
-    refs = tattn.flash_backward_reference(q, k, v, out, lse, go, causal=True,
-                                          scale=D ** -0.5, layout=layout)
-    for got, ref in zip(grads, refs):
+    refs = tattn.flash_backward_reference(q, k, v, out, lse, go, causal=causal,
+                                          scale=scale, layout=layout)
+    again = tattn.flash_backward(q, k, v, out, lse, go, causal=causal, scale=scale,
+                                 layout=layout)
+    for got, ref, rerun in zip(grads, refs, again):
         assert got.shape == ref.shape and got.dtype == ref.dtype
         # chip_smoke.py's limits, with their reasons there.
         torch.testing.assert_close(got.float(), ref.float(), atol=4e-3, rtol=2e-2)
-        assert float((got.float() - ref.float()).norm() / ref.float().norm()) <= 1e-2
+        # With one key per row (S = T = 1) dq and dk are 0 up to rounding and
+        # their ratio is noise; the per-element limit above holds them.
+        if float(ref.float().norm()) >= 1.0:
+            assert float((got.float() - ref.float()).norm() / ref.float().norm()) <= 1e-2
+        assert torch.equal(got, rerun)  # no atomics: a rerun repeats bit for bit
     with pytest.raises(TypeError):
         tattn.flash_backward(q.float(), k.float(), v.float(), out.float(), lse, go.float(),
                              causal=True, scale=1.0, layout=layout)
