@@ -32,18 +32,32 @@ Phases, each printing one JSON record per line:
            (K1 + K2) against the plain-attention route and an f32 evaluation,
            then steps on a repeated batch with their loss, exact K1/K2 launch
            counts, step time, MFU, device idle share and peak memory
+  remat    llama3-1b as the train phase runs it under each remat policy (full,
+           attn, dots, selective), one set of weights and one batch: step-1
+           gradients against "full"'s, K1/K2 launches per step (K1 once per
+           layer under "selective", twice under the others), step time, MFU
+           and peak memory per policy
+  fused    llama3-1b with fused_qkv=True, its weights the unfused model's
+           concatenated: step-1 gradients (split back) through the train
+           phase's f32-distance check, launch counts, step time beside the
+           unfused model's
+  ckpt     gpt2-125m saved with AsyncCheckpointWriter after 2 steps while step
+           3 runs, restored bit for bit into a fresh state, step 3 resumed from
+           it, and LLMServer warm-started from the checkpoint serving 2 greedy
+           requests token-identical to an engine over the in-memory weights
 Then a summary (failed phases; kernel_over_library at the shapes the kernels
 are judged by), the kernels line and, last, {"ok": true, "device": {...}}.
 The kernel
 launch counts, both kernels', are set to 0 just before each main path (the
-model's forward, the served requests, each configuration's train steps) and
-read just after; the kernels line's
+model's forward, the served requests, each configuration's and each remat
+policy's train steps) and read just after; the kernels line's
 `launches` are K1's on the served requests and K2's on llama3-1b's steps,
 with every path's counts beside them.
 
 Exits non-zero (and prints no result) without a GPU, without the package
 beside it, or when any phase fails. The only process it starts besides
-itself is nvcc (and nvidia-smi), both waited for.
+itself is nvcc (and nvidia-smi), both waited for; the ckpt phase's threads
+(the checkpoint writer, the engines' steppers) are shut down before it ends.
 """
 
 from __future__ import annotations
@@ -52,6 +66,7 @@ import asyncio
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -137,7 +152,7 @@ TRAIN_RUNS = [("llama3-1b", 4, 2048, True, 6), ("gpt2-125m", 8, 1024, False, 6)]
 K1_MAIN_SHAPE = (128, 32, 8, 128, True, "bshd")  # 3 of the 4 served offset-0 chunks
 K1_MAX_SEQ_SHAPE = (2048, 32, 8, 128, True, "bshd")  # the served max_seq, one prompt
 
-PHASES = ("build", "k1", "k2", "head", "model", "serve", "train")
+PHASES = ("build", "k1", "k2", "head", "model", "serve", "train", "remat", "fused", "ckpt")
 
 
 def emit(record: dict) -> None:
@@ -780,6 +795,54 @@ def _l2(values) -> float:
     return math.sqrt(sum(v * v for v in values))
 
 
+def _reference_grads(cfg, params, data, device):
+    """Step-1 gradients of `params` under `cfg` evaluated in f32 (plain
+    attention, f32 activations) and by the bf16 plain-attention route:
+    (leaf names, f32 loss, f32 gradients, plain loss, the plain route's
+    distance from f32 leaf by leaf)."""
+    import dataclasses
+
+    import torch
+
+    from ray_tpu_torch.models.transformer import Transformer
+
+    names = _leaf_names(params)
+    cfg32 = dataclasses.replace(cfg, attention="reference", dtype=torch.float32)
+    loss32, g32 = _grads(Transformer(cfg32, params, device=device), data)
+    loss_plain, g = _grads(Transformer(dataclasses.replace(cfg, attention="reference"),
+                                       params, device=device), data)
+    dl_p32 = _leaf_distances(g, g32)
+    del g
+    return names, loss32, g32, loss_plain, dl_p32
+
+
+def _distance_check(names, dl_f32, dl_p32, g32, g) -> dict:
+    """The flash route's step-1 gradients `g` (distances `dl_f32` from the
+    f32 evaluation, leaf by leaf) against the plain route's (`dl_p32`): no
+    farther than twice over all leaves and for every attention projection
+    leaf alone, and finite. Its record fields, with "ok"."""
+    import torch
+
+    d_p32, d_f32 = _l2(dl_p32), _l2(dl_f32)
+    attn = [i for i, n in enumerate(names) if "/attn/" in n]
+    worst = max(attn, key=lambda i: dl_f32[i] / dl_p32[i])
+    g32_norm = float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(x) for x in g32])))
+    finite = all(bool(torch.isfinite(x).all()) for x in g)
+    return {
+        "grad_l2_dist_plain_vs_f32": d_p32, "grad_l2_dist_flash_vs_f32": d_f32,
+        "grad_l2_norm_f32": g32_norm, "grad_tolerance": 2.0 * d_p32,
+        "attn_leaves": len(attn),
+        "attn_grad_l2_dist_plain_vs_f32": _l2(dl_p32[i] for i in attn),
+        "attn_grad_l2_dist_flash_vs_f32": _l2(dl_f32[i] for i in attn),
+        "attn_leaf_worst_ratio": {"leaf": names[worst], "flash_vs_f32": dl_f32[worst],
+                                  "plain_vs_f32": dl_p32[worst],
+                                  "ratio": dl_f32[worst] / dl_p32[worst]},
+        "ok": finite and d_f32 <= 2.0 * d_p32
+        and all(dl_f32[i] <= 2.0 * dl_p32[i] for i in attn),
+    }
+
+
 def phase_train(name: str, batch: int, seq: int, remat: bool, steps: int,
                 seed: int = 0, device: str = "cuda") -> dict:
     """init_state/build_train_step on `name` at full width and depth, random
@@ -800,8 +863,6 @@ def phase_train(name: str, batch: int, seq: int, remat: bool, steps: int,
     of the steps after the first; MFU counts bench.py's model flops (6N +
     12*L*E*S per token) against the bf16 dense peak; one further step is
     profiled for the device's busy and idle share."""
-    import dataclasses
-
     import torch
 
     from ray_tpu_torch.models.transformer import Transformer, get_config
@@ -822,24 +883,11 @@ def phase_train(name: str, batch: int, seq: int, remat: bool, steps: int,
     # Step-1 gradients of the three evaluations, one held at a time beside
     # the f32 one.
     params = model.param_tree()
-    names = _leaf_names(params)
-    cfg32 = dataclasses.replace(cfg, attention="reference", dtype=torch.float32)
-    loss32, g32 = _grads(Transformer(cfg32, params, device=device), data)
-    loss_plain, g = _grads(Transformer(dataclasses.replace(cfg, attention="reference"),
-                                       params, device=device), data)
-    dl_p32 = _leaf_distances(g, g32)
-    del g
+    names, loss32, g32, loss_plain, dl_p32 = _reference_grads(cfg, params, data, device)
     LAUNCHES.update(flash_fwd=0, flash_bwd=0)
     loss_flash, g = _grads(model, data)
     grad_launches = dict(LAUNCHES)
-    dl_f32 = _leaf_distances(g, g32)
-    d_p32, d_f32 = _l2(dl_p32), _l2(dl_f32)
-    attn = [i for i, n in enumerate(names) if "/attn/" in n]
-    worst = max(attn, key=lambda i: dl_f32[i] / dl_p32[i])
-    attn_leaves_ok = all(dl_f32[i] <= 2.0 * dl_p32[i] for i in attn)
-    g32_norm = float(torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(x) for x in g32])))
-    finite_grads = all(bool(torch.isfinite(x).all()) for x in g)
+    check = _distance_check(names, _leaf_distances(g, g32), dl_p32, g32, g)
     del g, g32, params
     _empty_cache(device)
 
@@ -864,24 +912,18 @@ def phase_train(name: str, batch: int, seq: int, remat: bool, steps: int,
 
     step_s = statistics.median(times[1:])
     tokens_per_s = batch * seq / step_s
-    flops_per_token = 6 * cfg.num_params() + 12 * cfg.n_layers * cfg.hidden * seq
+    flops_per_token = _flops_per_token(cfg, seq)
     mfu = tokens_per_s * flops_per_token / PEAK_BF16_FLOPS
     per_layer = 2 if remat else 1
     expected = {"flash_fwd": per_layer * cfg.n_layers * steps,
                 "flash_bwd": cfg.n_layers * steps}
+    ok_check = check.pop("ok")
     rec = {
         "phase": "train", "model": name, "layers": cfg.n_layers, "hidden": cfg.hidden,
         "params_b": cfg.num_params() / 1e9, "tokens": [batch, seq], "remat": remat,
         "remat_policy": cfg.remat_policy, "fused_ce": fused, "init_s": init_s,
         "loss_step1": {"flash": loss_flash, "plain": loss_plain, "f32": loss32},
-        "grad_l2_dist_plain_vs_f32": d_p32, "grad_l2_dist_flash_vs_f32": d_f32,
-        "grad_l2_norm_f32": g32_norm, "grad_tolerance": 2.0 * d_p32,
-        "attn_leaves": len(attn),
-        "attn_grad_l2_dist_plain_vs_f32": _l2(dl_p32[i] for i in attn),
-        "attn_grad_l2_dist_flash_vs_f32": _l2(dl_f32[i] for i in attn),
-        "attn_leaf_worst_ratio": {"leaf": names[worst], "flash_vs_f32": dl_f32[worst],
-                                  "plain_vs_f32": dl_p32[worst],
-                                  "ratio": dl_f32[worst] / dl_p32[worst]},
+        **check,
         "grad_check_launches": grad_launches,
         "losses": losses, "grad_norms": norms, "step_s": times,
         "steady_step_ms": step_s * 1e3, "tokens_per_s": tokens_per_s,
@@ -891,8 +933,7 @@ def phase_train(name: str, batch: int, seq: int, remat: bool, steps: int,
         "profile": profile,
     }
     rec["loss_monotone"] = all(b < a for a, b in zip(losses, losses[1:]))
-    rec["ok"] = (finite_grads and d_f32 <= 2.0 * d_p32 and attn_leaves_ok
-                 and launches == expected
+    rec["ok"] = (ok_check and launches == expected
                  and all(placement[k] == tokens.device for k in ("tokens", "targets"))
                  and all(math.isfinite(x) for x in losses + norms)
                  and losses[-1] < losses[0]
@@ -901,6 +942,447 @@ def phase_train(name: str, batch: int, seq: int, remat: bool, steps: int,
     del state, step_fn, model, opt
     gc.collect()
     _empty_cache(device)
+    emit(rec)
+    return rec
+
+
+def _flops_per_token(cfg, seq: int) -> int:
+    """bench.py's model flops per trained token: 6N + 12*L*E*S."""
+    return 6 * cfg.num_params() + 12 * cfg.n_layers * cfg.hidden * seq
+
+
+def _steps_record(model, cfg, data, steps: int, device: str) -> dict:
+    """`steps` train steps (AdamW as the train phase) on `model`'s current
+    weights after one untimed step: the median step time, tokens/s, MFU,
+    peak device memory of the steps (reset after the optimizer state is
+    made), the losses, the K1/K2 launches of the timed steps, and a profile
+    of one more step (device busy and idle share, time by kind of kernel)."""
+    import torch
+
+    from ray_tpu_torch.ops.attention import LAUNCHES
+    from ray_tpu_torch.parallel.optim import adamw
+    from ray_tpu_torch.parallel.spmd import build_train_step, init_state
+
+    opt = adamw(3e-4, weight_decay=0.01, mu_dtype=torch.bfloat16)
+    state, _ = init_state(model, cfg, opt)
+    step_fn, _ = build_train_step(model, opt)
+    _sync(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    state, metrics = step_fn(state, data)
+    losses = [float(metrics["loss"])]
+    LAUNCHES.update(flash_fwd=0, flash_bwd=0)
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, data)
+        losses.append(float(metrics["loss"]))  # synchronizes
+        times.append(time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    peak_gb = profile = None
+    if device == "cuda":
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        profile = _device_profile(lambda: step_fn(state, data), reps=2)
+    del state, step_fn, opt
+    gc.collect()
+    _empty_cache(device)
+    batch, seq = data["tokens"].shape
+    step_s = statistics.median(times)
+    return {"step_s": times, "steady_step_ms": step_s * 1e3,
+            "tokens_per_s": batch * seq / step_s,
+            "mfu": batch * seq / step_s * _flops_per_token(cfg, seq) / PEAK_BF16_FLOPS,
+            "peak_memory_gb": peak_gb, "losses": losses, "launches": launches,
+            "profile": profile}
+
+
+# The remat phase's policies and K1's launches per layer per step under each
+# (JAX's traced gradient holds the same: only "selective" keeps the flash
+# forward's outputs, so only it spares K1's rerun).
+REMAT_K1_PER_LAYER = {"full": 2, "attn": 2, "dots": 2, "selective": 1}
+# Step-1 gradients under a policy against "full"'s: bit for bit, or within
+# this relative L2 distance per leaf (the policies recompute the same ops on
+# the same inputs; only a sum taken with atomics may differ).
+REMAT_GRAD_REL_L2 = 1e-5
+
+
+def _rel_l2s(got, ref) -> list:
+    """||g - r|| / ||r|| per leaf (||g - r|| where ||r|| is 0)."""
+    import torch
+
+    out = []
+    for g, r in zip(got, ref):
+        d = float(torch.linalg.vector_norm(g.float() - r.float()))
+        n = float(torch.linalg.vector_norm(r.float()))
+        out.append(d / n if n else d)
+    return out
+
+
+def phase_remat(name: str = "llama3-1b", batch: int = 4, seq: int = 2048,
+                steps: int = 3, seed: int = 0, device: str = "cuda") -> dict:
+    """llama3-1b at the train phase's shape under each remat policy (full,
+    attn, dots, selective), one set of random weights (shared by the four
+    models) and one batch. Step-1 gradients under each policy against
+    "full"'s (REMAT_GRAD_REL_L2), with K1 and K2 launched exactly
+    REMAT_K1_PER_LAYER and once per layer; the device memory allocated at
+    the end of the forward pass (what the policy keeps for the backward) and
+    the forward and backward pass's peak, each above what was allocated
+    before it; then `steps` timed steps per policy (after an untimed one)
+    with their launches, step time, tokens/s, MFU and peak memory, all from
+    this run."""
+    import dataclasses
+
+    import torch
+
+    from ray_tpu_torch.models.transformer import Transformer, get_config
+    from ray_tpu_torch.ops.attention import LAUNCHES
+    from ray_tpu_torch.parallel.optim import tree_leaves
+    from ray_tpu_torch.parallel.spmd import train_loss
+
+    cfg = get_config(name, remat=True, remat_policy="full")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    base = Transformer(cfg, device=device, generator=gen)
+    params = base.param_tree()
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device=device)
+    data = {"tokens": tokens, "targets": tokens}
+    models = {p: base if p == "full" else Transformer(
+        dataclasses.replace(cfg, remat_policy=p), params, device=device)
+        for p in REMAT_K1_PER_LAYER}
+    L = cfg.n_layers
+    recs, ref, ok = {}, None, True
+    for policy, model in models.items():
+        _sync(device)
+        before = torch.cuda.memory_allocated() if device == "cuda" else 0
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.update(flash_fwd=0, flash_bwd=0)
+        loss = train_loss(model, data)
+        _sync(device)
+        # What the forward pass leaves for the backward: the block inputs
+        # and what the policy keeps.
+        kept = torch.cuda.memory_allocated() - before if device == "cuda" else None
+        g = torch.autograd.grad(loss, tree_leaves(model.param_tree(trainable=True)))
+        loss = loss.item()
+        launches = dict(LAUNCHES)
+        rec = {"loss_step1": loss, "grad_check_launches": launches,
+               "fwd_kept_above_base_gb": kept / 1e9 if device == "cuda" else None,
+               "fwd_bwd_peak_above_base_gb": (torch.cuda.max_memory_allocated() - before) / 1e9
+               if device == "cuda" else None}
+        want = {"flash_fwd": REMAT_K1_PER_LAYER[policy] * L, "flash_bwd": L}
+        good = launches == want and all(bool(torch.isfinite(x).all()) for x in g)
+        if ref is None:
+            ref = g
+        else:
+            rel = _rel_l2s(g, ref)
+            worst = max(range(len(rel)), key=rel.__getitem__)
+            rec.update(bitwise_equal_to_full=all(torch.equal(a, b) for a, b in zip(g, ref)),
+                       grad_max_rel_l2_vs_full=rel[worst],
+                       grad_worst_leaf=_leaf_names(params)[worst])
+            good = good and (rec["bitwise_equal_to_full"] or rel[worst] <= REMAT_GRAD_REL_L2)
+        del g
+        recs[policy] = rec
+        ok = ok and good
+    del ref
+    _empty_cache(device)
+    for policy, model in models.items():
+        timed = _steps_record(model, model.cfg, data, steps, device)
+        want = {"flash_fwd": REMAT_K1_PER_LAYER[policy] * L * steps, "flash_bwd": L * steps}
+        timed["launches_expected"] = want
+        ok = ok and timed["launches"] == want and all(math.isfinite(x) for x in timed["losses"])
+        recs[policy].update(timed)
+    rec = {"phase": "remat", "model": name, "layers": L, "tokens": [batch, seq],
+           "timed_steps": steps, "grad_tol_rel_l2": REMAT_GRAD_REL_L2, "policies": recs,
+           "launches": {p: r["launches"] for p, r in recs.items()}, "ok": ok}
+    del models, base, params
+    gc.collect()
+    _empty_cache(device)
+    emit(rec)
+    return rec
+
+
+def _fused_params(params, cfg) -> dict:
+    """The fused-qkv twin of an unfused param tree: each layer's q, k, v
+    kernels concatenated on the heads axis into qkv, gate and up on the
+    output axis into gate_up."""
+    import torch
+
+    out = {k: v for k, v in params.items() if not k.startswith("layer_")}
+    for i in range(cfg.n_layers):
+        layer = params[f"layer_{i}"]
+        a, m = layer["attn"], layer["mlp"]
+        out[f"layer_{i}"] = dict(layer, attn={
+            "qkv": {"kernel": torch.cat([a[n]["kernel"] for n in ("q", "k", "v")], dim=1)},
+            "o": a["o"]}, mlp={
+            "gate_up": {"kernel": torch.cat([m["gate"]["kernel"], m["up"]["kernel"]], dim=1)},
+            "down": m["down"]})
+    return out
+
+
+def _split_fused_grads(names, fused_names, grads, cfg) -> list:
+    """A fused model's gradients in the unfused model's leaf order `names`:
+    qkv's split into q, k, v and gate_up's into gate, up."""
+    by_name = dict(zip(fused_names, grads))
+    H, Hkv, F = cfg.n_heads, cfg.n_kv_heads, cfg.mlp_dim
+    out = []
+    for n in names:
+        layer, _, rest = n.partition("/")
+        if rest in ("attn/q/kernel", "attn/k/kernel", "attn/v/kernel"):
+            parts = by_name[f"{layer}/attn/qkv/kernel"].split([H, Hkv, Hkv], dim=1)
+            out.append(parts["qkv".index(rest[5])])
+        elif rest in ("mlp/gate/kernel", "mlp/up/kernel"):
+            parts = by_name[f"{layer}/mlp/gate_up/kernel"].split([F, F], dim=1)
+            out.append(parts[0 if rest == "mlp/gate/kernel" else 1])
+        else:
+            out.append(by_name[n])
+    return out
+
+
+def phase_fused(name: str = "llama3-1b", batch: int = 4, seq: int = 2048, steps: int = 3,
+                seed: int = 0, device: str = "cuda") -> dict:
+    """llama3-1b with fused_qkv=True at the train phase's shape, its weights
+    the unfused model's concatenated (q|k|v, gate|up): the step-1 gradients,
+    split back, pass the train phase's f32-distance check against the f32
+    and plain-attention evaluations of the unfused weights, with K1 and K2
+    launched as under "full" (K1 and K2 now in the bshd layout); then the
+    fused and the unfused model's timed steps (remat "full")."""
+    import torch
+
+    from ray_tpu_torch.models.transformer import Transformer, get_config
+    from ray_tpu_torch.ops.attention import LAUNCHES
+
+    cfg = get_config(name, remat=True)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = Transformer(cfg, device=device, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device=device)
+    data = {"tokens": tokens, "targets": tokens}
+    params = model.param_tree()
+    names, loss32, g32, loss_plain, dl_p32 = _reference_grads(cfg, params, data, device)
+    fcfg = get_config(name, remat=True, fused_qkv=True)
+    fused = Transformer(fcfg, _fused_params(params, cfg), device=device)
+    LAUNCHES.update(flash_fwd=0, flash_bwd=0)
+    loss_fused, g = _grads(fused, data)
+    grad_launches = dict(LAUNCHES)
+    g = _split_fused_grads(names, _leaf_names(fused.param_tree()), g, cfg)
+    check = _distance_check(names, _leaf_distances(g, g32), dl_p32, g32, g)
+    del g, g32
+    _empty_cache(device)
+    L = cfg.n_layers
+    timed = {"fused": _steps_record(fused, fcfg, data, steps, device),
+             "unfused": _steps_record(model, cfg, data, steps, device)}
+    want = {"flash_fwd": 2 * L * steps, "flash_bwd": L * steps}
+    rec = {"phase": "fused", "model": name, "layers": L, "tokens": [batch, seq],
+           "loss_step1": {"fused_flash": loss_fused, "plain": loss_plain, "f32": loss32},
+           **check, "grad_check_launches": grad_launches, "timed_steps": steps,
+           "steps": timed, "launches": timed["fused"]["launches"],
+           "launches_expected": want,
+           "fused_over_unfused_step": timed["fused"]["steady_step_ms"]
+           / timed["unfused"]["steady_step_ms"]}
+    rec["ok"] = (rec.pop("ok") and grad_launches == {"flash_fwd": 2 * L, "flash_bwd": L}
+                 and all(t["launches"] == want for t in timed.values())
+                 and all(math.isfinite(x) for t in timed.values() for x in t["losses"]))
+    del fused, model, params
+    gc.collect()
+    _empty_cache(device)
+    emit(rec)
+    return rec
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone_tree(v) for v in tree)
+    return tree.detach().clone() if hasattr(tree, "detach") else tree.copy()
+
+
+def _tree_leaves_any(tree) -> list:
+    """Leaves of nested dicts, tuples and lists, keys sorted."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves_any(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _tree_leaves_any(v)]
+    return [tree]
+
+
+def _load_tree_(state, snap) -> None:
+    """Copy a snapshot (a state_tree clone) back into `state`, in place."""
+    import torch
+
+    from ray_tpu_torch.parallel.spmd import state_tree
+
+    with torch.no_grad():
+        for dst, src in zip(_tree_leaves_any(state_tree(state)), _tree_leaves_any(snap)):
+            if hasattr(dst, "copy_"):
+                dst.copy_(src)
+    state.step = int(snap["step"])
+    state.opt_state.count = int(snap["opt_state"][0][0])
+
+
+def _max_abs_gap(a, b) -> float:
+    import torch
+
+    return max(float((x.detach().float() - y.detach().float()).abs().max())
+               for x, y in zip(a, b)
+               if isinstance(x, torch.Tensor))
+
+
+def _greedy(engine, prompts, max_tokens: int) -> list:
+    """Greedy tokens of each prompt, one request at a time (a batch of one,
+    so both engines compared batch alike); the engine shut down."""
+    import threading
+
+    from ray_tpu_torch.llm import SamplingParams
+
+    out = []
+    try:
+        for p in prompts:
+            toks, done = [], threading.Event()
+
+            def cb(token, last, toks=toks, done=done):
+                toks.append(token)
+                if last:
+                    done.set()
+
+            engine.submit(p, SamplingParams(max_tokens=max_tokens), cb)
+            if not done.wait(timeout=300):
+                raise RuntimeError("engine did not finish")
+            out.append(toks)
+    finally:
+        engine.shutdown()
+    return out
+
+
+def phase_ckpt(name: str = "gpt2-125m", batch: int = 8, seq: int = 1024, seed: int = 0,
+               device: str = "cuda", max_tokens: int = 16) -> dict:
+    """A run saved and resumed: gpt2-125m (the train phase's shape and
+    AdamW) takes 2 steps; its whole TrainState ({"step", "params",
+    "opt_state"}, bf16 first moment) is saved with AsyncCheckpointWriter
+    while step 3 runs (the loop's blocked ms and the write's seconds
+    printed), into a temporary directory removed at the end. Restored into a
+    fresh model and state, every leaf equals the snapshot bit for bit; step
+    3 from it differs from the uninterrupted step 3 by no more than two
+    uninterrupted runs of step 3 differ from each other. Then LLMServer
+    warm-starts from the checkpoint and serves 2 greedy requests, whose
+    tokens must equal a DecodeEngine's over the snapshot's params cast the
+    same way (load_model's bf16)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from ray_tpu_torch import checkpoint as ckpt
+    from ray_tpu_torch.llm import DecodeEngine, LLMConfig, LLMServer
+    from ray_tpu_torch.models.convert import params_from_jax
+    from ray_tpu_torch.models.transformer import Transformer, get_config
+    from ray_tpu_torch.parallel.optim import adamw
+    from ray_tpu_torch.parallel.spmd import (
+        build_train_step,
+        init_state,
+        state_from_tree,
+        state_tree,
+    )
+
+    cfg = get_config(name, remat=False)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = Transformer(cfg, device=device, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device=device)
+    data = {"tokens": tokens, "targets": tokens}
+
+    def optimizer():
+        return adamw(3e-4, weight_decay=0.01, mu_dtype=torch.bfloat16)
+
+    opt = optimizer()
+    state, _ = init_state(model, cfg, opt)
+    step_fn, _ = build_train_step(model, opt)
+    for _ in range(2):
+        state, _ = step_fn(state, data)
+    _sync(device)
+    snap = _clone_tree(state_tree(state))
+    snap_leaves = _tree_leaves_any(snap)
+    nbytes = sum(x.numel() * x.element_size() for x in snap_leaves if hasattr(x, "numel"))
+    writer = ckpt.AsyncCheckpointWriter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        path = os.path.join(tmp, "checkpoint_000002")
+        try:
+            t0 = time.perf_counter()
+            writer.save(path, state_tree(state))
+            blocked_s = time.perf_counter() - t0
+            state, m3 = step_fn(state, data)  # runs while the writer writes
+            losses3 = [float(m3["loss"])]
+            step3_s = time.perf_counter() - t0 - blocked_s
+            writer.wait_until_finished()
+            write_s = time.perf_counter() - t0
+            # A second save, as a run saves again later: its host buffers
+            # come from the pinned allocator's cache.
+            t0 = time.perf_counter()
+            writer.save(os.path.join(tmp, "checkpoint_000003"), state_tree(state))
+            blocked2_s = time.perf_counter() - t0
+            writer.wait_until_finished()
+            write2_s = time.perf_counter() - t0
+        finally:
+            writer.shutdown()
+        runs = [_clone_tree(state.params)]
+        _load_tree_(state, snap)
+        state, m3b = step_fn(state, data)
+        losses3.append(float(m3b["loss"]))
+        runs.append(_clone_tree(state.params))
+        del state, step_fn, opt
+        gc.collect()
+        _empty_cache(device)
+        t0 = time.perf_counter()
+        tree = ckpt.restore(path)
+        model2 = Transformer(cfg, device=device)
+        opt2 = optimizer()
+        state2 = state_from_tree(model2, cfg, opt2, tree)
+        _sync(device)
+        restore_s = time.perf_counter() - t0
+        del tree
+        restored = _tree_leaves_any(state_tree(state2))
+        bitwise = len(restored) == len(snap_leaves) and all(
+            torch.equal(a, b) and a.dtype == b.dtype if isinstance(a, torch.Tensor)
+            else int(a) == int(b) for a, b in zip(restored, snap_leaves))
+        step_fn2, _ = build_train_step(model2, opt2)
+        state2, m3r = step_fn2(state2, data)
+        loss3_restored = float(m3r["loss"])
+        after = _tree_leaves_any(state2.params)
+        gap_runs = _max_abs_gap(_tree_leaves_any(runs[1]), _tree_leaves_any(runs[0]))
+        gap_restored = _max_abs_gap(after, _tree_leaves_any(runs[0]))
+        del state2, step_fn2, opt2, model2, runs, after
+        gc.collect()
+        _empty_cache(device)
+
+        rng = torch.Generator().manual_seed(seed + 1)
+        prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+                   for n in (24, 57)]
+        server = LLMServer(LLMConfig(model_id=name, checkpoint_path=path, num_slots=2,
+                                     max_seq=256, device=device))
+
+        async def serve():
+            try:
+                return [(await server.generate(p, max_tokens=max_tokens))["token_ids"]
+                        for p in prompts]
+            finally:
+                await server.shutdown()
+
+        served = asyncio.run(serve())
+    del server
+    scfg = dataclasses.replace(cfg, param_dtype=cfg.dtype)
+    engine = DecodeEngine(scfg, params_from_jax(snap["params"], scfg, device), num_slots=2,
+                          max_seq=256, device=device)
+    reference = _greedy(engine, prompts, max_tokens)
+    del engine, snap, snap_leaves
+    gc.collect()
+    _empty_cache(device)
+    rec = {"phase": "ckpt", "model": name, "tokens": [batch, seq], "state_bytes": nbytes,
+           "blocked_ms": blocked_s * 1e3, "write_s": write_s,
+           "second_save": {"blocked_ms": blocked2_s * 1e3, "write_s": write2_s},
+           "step3_beside_write_s": step3_s, "restore_s": restore_s,
+           "restored_bitwise": bitwise, "loss_step3": {"uninterrupted": losses3,
+                                                       "restored": loss3_restored},
+           "param_max_abs_gap": {"uninterrupted_runs": gap_runs, "restored": gap_restored},
+           "served_tokens": served, "engine_tokens": reference}
+    rec["ok"] = (bitwise and gap_restored <= gap_runs and served == reference
+                 and all(len(t) == max_tokens for t in served)
+                 and all(math.isfinite(x) for x in losses3))
     emit(rec)
     return rec
 
@@ -972,7 +1454,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     emit({"phase": "free", "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
     train = [phase_train(*run) for run in TRAIN_RUNS] if "train" in phases else []
-    records = [r for r in (*k1, *k2, *head, model, serve, *train) if r is not None]
+    remat = phase_remat() if "remat" in phases else None
+    fused = phase_fused() if "fused" in phases else None
+    ckpt = phase_ckpt() if "ckpt" in phases else None
+    records = [r for r in (*k1, *k2, *head, model, serve, *train, remat, fused, ckpt)
+               if r is not None]
     failed = [r.get("phase") for r in records if not r["ok"]]
     if build is not None and build["spill_bytes"]:
         failed.append("build")  # a kernel spills registers to local memory
@@ -988,6 +1474,8 @@ def main(argv=None) -> int:
     k2_rec = k2[K2_CASES.index(K2_MAIN_SHAPE)]
     by_path = {"model_llama3-8b": model["launches"], "serve_llama3-8b": serve["launches"]}
     by_path.update({f"train_{r['model']}": r["launches"] for r in train})
+    by_path.update({f"remat_{p}_llama3-1b": c for p, c in remat["launches"].items()})
+    by_path["fused_llama3-1b"] = fused["launches"]
     kernels = {"kernels": [{
         "name": "flash_fwd", "route": "cuda",
         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",

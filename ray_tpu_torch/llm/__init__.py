@@ -19,7 +19,12 @@ from typing import Any, Dict, List, Optional, Union
 import torch
 
 from ray_tpu_torch import resolve_device
-from ray_tpu_torch.llm._engine import DecodeEngine, EngineOverloadedError, SamplingParams
+from ray_tpu_torch.llm._engine import (
+    DecodeEngine,
+    EngineOverloadedError,
+    SamplingParams,
+    sharded_params,
+)
 
 __all__ = [
     "ByteTokenizer",
@@ -51,7 +56,9 @@ class LLMConfig:
 
     model_id: str = "test-tiny"
     model_config: Optional[Any] = None  # ModelConfig; defaults to get_config(model_id)
-    # A directory holding params.pkl (a nested dict of numpy arrays, the flax
+    # A committed sharded checkpoint (ray_tpu.checkpoint's format, written by
+    # either package: a params tree or a train state holding "params"), or a
+    # directory holding params.pkl (a nested dict of numpy arrays, the flax
     # param tree); None -> random weights from `seed`.
     checkpoint_path: Optional[str] = None
     num_slots: int = 4            # continuous-batching slots
@@ -67,7 +74,10 @@ class LLMConfig:
 def load_model(config: LLMConfig):
     """(cfg, params) for a config: the flax-layout param tree on the config's
     device, matrices stored in the model's activation dtype (bf16 copies of
-    f32 checkpoints give the same math) and norm scales in f32."""
+    f32 checkpoints give the same math) and norm scales in f32. A sharded
+    checkpoint warm-starts from its "params" subtree (or the whole tree, for
+    a bare params save); only a committed one is accepted."""
+    from ray_tpu_torch.checkpoint import is_sharded
     from ray_tpu_torch.models.convert import params_from_jax
     from ray_tpu_torch.models.transformer import CONFIGS, get_config, init_params
 
@@ -77,15 +87,18 @@ def load_model(config: LLMConfig):
     )
     cfg = dataclasses.replace(cfg, param_dtype=cfg.dtype)
     if config.checkpoint_path:
-        path = os.path.join(config.checkpoint_path, "params.pkl")
-        if not os.path.exists(path):
-            raise NotImplementedError(
-                f"{config.checkpoint_path} has no params.pkl; sharded checkpoints "
-                f"are ROADMAP Queue 1 item 4 of the port"
-            )
-        # Trusted input: params.pkl is this framework's own weight format.
-        with open(path, "rb") as f:
-            tree = pickle.load(f)
+        if is_sharded(config.checkpoint_path):
+            tree = sharded_params(config.checkpoint_path)
+        else:
+            path = os.path.join(config.checkpoint_path, "params.pkl")
+            if not os.path.exists(path):
+                raise FileNotFoundError(
+                    f"{config.checkpoint_path} holds neither a sharded checkpoint "
+                    f"nor params.pkl"
+                )
+            # Trusted input: params.pkl is this framework's own weight format.
+            with open(path, "rb") as f:
+                tree = pickle.load(f)
         params = params_from_jax(tree, cfg, device)
     else:
         gen = torch.Generator(device=device).manual_seed(config.seed)

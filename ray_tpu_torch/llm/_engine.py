@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch._config import CONFIG
+from ray_tpu_torch.checkpoint import restore
 from ray_tpu_torch.llm.scheduler.scheduler import (
     EngineOverloadedError,
     Request,
@@ -179,6 +180,15 @@ def _not_in_slice(what: str, where: str):
     )
 
 
+def sharded_params(path: str):
+    """The params of a committed sharded checkpoint, on the host: its
+    "params" subtree for a train state, else the whole tree (a bare params
+    save), as ray_tpu's warm start reads it. Refuses uncommitted
+    directories."""
+    tree = restore(path)
+    return tree.get("params", tree) if isinstance(tree, dict) else tree
+
+
 class DecodeEngine:
     """B-slot continuous-batching engine. Thread-safe submit(); a background
     stepper thread executes the scheduler's per-iteration plans on the
@@ -204,6 +214,12 @@ class DecodeEngine:
             raise _not_in_slice("prefix_cache (paged KV prefix cache)", "Queue 1, item 2")
         if tp != 1:
             raise _not_in_slice("tp > 1 (tensor-parallel serving)", "Queue 1, item 2")
+        if cfg.fused_qkv or "qkv" in params.get("layer_0", {}).get("attn", {}):
+            raise ValueError(
+                "DecodeEngine reads separate q, k, v and gate, up matrices "
+                "(layer['attn']['q'], as ray_tpu's engine does), so a fused_qkv "
+                "model cannot be served by either; split qkv and gate_up first"
+            )
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = _tree_to(params, self.device)
@@ -259,6 +275,22 @@ class DecodeEngine:
         if decode_loop:
             self._thread = threading.Thread(target=self._loop, daemon=True)
             self._thread.start()
+
+    # -- warm start --------------------------------------------------------
+    @classmethod
+    def from_sharded_checkpoint(cls, cfg: ModelConfig, path: str, *, tp=1,
+                                **kwargs) -> "DecodeEngine":
+        """An engine whose weights come from a committed sharded checkpoint
+        (`ray_tpu_torch.checkpoint`, the format either package writes): a
+        bare params save or a train-state save holding a "params" subtree,
+        matrices in `cfg.param_dtype` on the engine's device. Refuses
+        uncommitted (manifest-less) directories."""
+        from ray_tpu_torch.models.convert import params_from_jax
+
+        if tp != 1:
+            raise _not_in_slice("tp > 1 (tensor-parallel serving)", "Queue 1, item 2")
+        device = resolve_device(kwargs.get("device"))
+        return cls(cfg, params_from_jax(sharded_params(path), cfg, device), tp=tp, **kwargs)
 
     # -- forward passes ----------------------------------------------------
     def _dev(self, arr) -> torch.Tensor:

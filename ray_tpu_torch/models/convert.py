@@ -5,7 +5,10 @@ and per-tensor layouts (`q/kernel` [E,H,D], `o/kernel` [H,D,E], `gate/kernel`
 [E,F], ...), so the only reshaping is of layer stacking: a model built with
 `scan_layers=True` stores every layer under `layers` with a leading layer
 axis, which is split here into the unscanned `layer_{i}` entries that the
-port's Transformer and DecodeEngine read.
+port's Transformer and DecodeEngine read. The fused-qkv layout (`qkv/kernel`,
+`gate_up/kernel`) maps over the same way. Leaves may be numpy arrays or torch
+tensors (a checkpoint restored by `ray_tpu_torch.checkpoint` holds bfloat16
+leaves as torch tensors).
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ _NORMS = ("attn_norm", "mlp_norm", "final_norm")
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
     return torch.from_numpy(np.array(x, dtype=np.float32)).to(
         device=device, dtype=dtype)
 
@@ -38,8 +43,21 @@ def _convert(node: Mapping[str, Any], dtype, device, name: str = "") -> ParamTre
 
 
 def _unstack(stacked: Mapping[str, Any], i: int):
-    return {k: (_unstack(v, i) if isinstance(v, Mapping) else np.asarray(v)[i])
+    return {k: (_unstack(v, i) if isinstance(v, Mapping)
+                else v[i] if isinstance(v, torch.Tensor) else np.asarray(v)[i])
             for k, v in stacked.items()}
+
+
+def unstack_layers(tree: Mapping[str, Any], n_layers: int) -> dict:
+    """A param-shaped tree (params, or an optimizer moment over them) with
+    a scanned `layers` stack split into `layer_{i}` entries; returned as it
+    is (a shallow copy) when it has none."""
+    tree = dict(tree)
+    if "layers" in tree:
+        stacked = tree.pop("layers")
+        for i in range(n_layers):
+            tree[f"layer_{i}"] = _unstack(stacked, i)
+    return tree
 
 
 def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device=None,
@@ -53,11 +71,7 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device=None,
     dtype = dtype or cfg.param_dtype
     if set(tree) == {"params"}:
         tree = tree["params"]
-    tree = dict(tree)
-    if "layers" in tree:
-        stacked = tree.pop("layers")
-        for i in range(cfg.n_layers):
-            tree[f"layer_{i}"] = _unstack(stacked, i)
+    tree = unstack_layers(tree, cfg.n_layers)
     missing = [f"layer_{i}" for i in range(cfg.n_layers) if f"layer_{i}" not in tree]
     if missing or "embedding" not in tree:
         raise ValueError(f"param tree lacks {missing or ['embedding']} for {cfg}")

@@ -9,21 +9,29 @@ JAX checkpoint maps over one to one (`models/convert.py`) and the serving
 engine reads the same tensors. Parameters are trainable; serving runs under
 `torch.inference_mode()`.
 
-Training: `remat=True` with `remat_policy="full"` recomputes each block in
-the backward pass (`torch.utils.checkpoint`, non-reentrant: JAX's `nn.remat`
-with no policy); `forward(..., return_hidden=True)` stops before the head for
-`fused_cross_entropy_loss`, which never holds the full [B,S,V] logits.
+Training: `remat=True` recomputes each block in the backward pass
+(`torch.utils.checkpoint`, non-reentrant), keeping what JAX's `remat_block`
+policy keeps (`remat_context`): nothing under "full", the attention output
+under "attn", every matmul's output under "dots", and under "selective" the
+tensors JAX names "save" plus the flash forward's outputs
+("flash_residuals"). `forward(..., return_hidden=True)` stops before the
+head for `fused_cross_entropy_loss`, which never holds the full [B,S,V]
+logits.
 
 Attention routes, as in the JAX module: "flash" runs the projections straight
 into [B,H,S,D] and the K1 kernel in that layout (`ops.attention.
 flash_attention_bhsd`, K2 in its backward); "reference" runs plain attention
-in [B,S,H,D]; a call with kv caches takes the plain cached route. The ring,
-ulysses, fused-qkv and MoE routes are later slices and raise.
+in [B,S,H,D]; a call with kv caches takes the plain cached route.
+`fused_qkv=True` projects q|k|v (and the MLP's gate|up) with one matrix each
+and, on the flash route, runs K1 and K2 in the [B,S,H,D] layout
+(`flash_attention`), as JAX's fused branch does. The ring, ulysses and MoE
+routes are later slices and raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Iterator, List, Optional, Tuple
 
@@ -32,7 +40,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch import resolve_device
-from ray_tpu_torch.ops.attention import flash_attention_bhsd, reference_attention
+from ray_tpu_torch.ops.attention import (
+    FLASH_FWD_OP,
+    flash_attention,
+    flash_attention_bhsd,
+    reference_attention,
+)
 
 ParamTree = Dict[str, object]
 
@@ -53,8 +66,8 @@ class ModelConfig:
     # params and casts at use; serving stores bf16 copies (the same math).
     param_dtype: torch.dtype = torch.float32
     tie_embeddings: bool = False
-    # Training memory: recompute each block in the backward pass. Only
-    # "full" (recompute everything) is ported; attn/dots/selective raise.
+    # Training memory: recompute each block in the backward pass, keeping
+    # what `remat_policy` names (REMAT_POLICIES).
     remat: bool = True
     remat_policy: str = "full"
     # Inert: accepted so JAX's config overrides carry over; the port runs
@@ -112,23 +125,90 @@ def _check_supported(cfg: ModelConfig) -> None:
         )
     if cfg.attention not in ("flash", "reference"):
         raise ValueError(f"unknown attention route {cfg.attention!r}")
-    if cfg.fused_qkv:
-        raise NotImplementedError(
-            "fused_qkv (one projection for q|k|v and gate|up) is ROADMAP "
-            "Queue 1 item 1b of the port"
-        )
-    if cfg.remat and cfg.remat_policy != "full":
-        if cfg.remat_policy in ("attn", "dots", "selective"):
-            raise NotImplementedError(
-                f"remat_policy={cfg.remat_policy!r} is ROADMAP Queue 1 item 1a of "
-                f"the port; remat_policy='full' or remat=False run"
-            )
+    if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
     if cfg.moe_experts > 0:
         raise NotImplementedError(
             "moe_experts > 0 (ops/moe.py) is ROADMAP Queue 1 item 7 (parallel "
             "ops) of the port"
         )
+
+
+# ---------------------------------------------------------------- remat
+
+
+@torch.library.custom_op("ray_tpu_torch::checkpoint_name", mutates_args=())
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """JAX's `checkpoint_name` as a dispatched op, so that a selective-
+    checkpoint policy can keep the tensor by its name. Torch's policies
+    decide per op, not per tensor, and a custom op may not return its input,
+    so this is a copy (one read and one write of x) whose gradient passes
+    through; the model calls it only where its remat policy keeps the name.
+
+    The names buy parity of memory with JAX, not compute: the non-reentrant
+    recompute reruns the block's Python in order, so every op upstream of a
+    kept tensor still reruns and only the tag's own copy is spared (where
+    XLA drops the upstream ops as dead code). Of what "attn" and
+    "selective" keep, only `flash_fwd`'s outputs spare work: K1's rerun."""
+    return x.clone()
+
+
+@checkpoint_name.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+checkpoint_name.register_autograd(lambda ctx, g: (g, None))
+
+_CHECKPOINT_NAME_OP = torch.ops.ray_tpu_torch.checkpoint_name.default
+
+# What each policy keeps for the backward pass, as JAX's `remat_block`
+# (ray_tpu/models/transformer.py:437) has it: the checkpoint names it saves,
+# and whether it saves every matmul's output (`dots_saveable`). The name
+# "flash_residuals" is the flash forward's (out, lse), the outputs of the
+# `flash_fwd` op.
+REMAT_POLICIES: Dict[str, Tuple[Tuple[str, ...], bool]] = {
+    "full": ((), False),
+    "attn": (("attn_out",), False),
+    "dots": ((), True),
+    "selective": (("save", "flash_residuals"), False),
+}
+# What dot_general becomes in aten: x @ w and einsum dispatch these.
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default)
+
+
+def remat_names(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The checkpoint names a block of `cfg` tags (none without remat)."""
+    return REMAT_POLICIES[cfg.remat_policy][0] if cfg.remat else ()
+
+
+def remat_context(policy: str):
+    """The `context_fn` of `torch.utils.checkpoint` for a remat policy: None
+    for "full" (keep nothing), else a selective-checkpoint policy that keeps
+    the outputs of the ops the policy names (MUST_SAVE) and recomputes the
+    rest."""
+    names, dots = REMAT_POLICIES[policy]
+    if not names and not dots:
+        return None
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    saved_ops = set(_DOT_OPS) if dots else set()
+    if "flash_residuals" in names:
+        saved_ops.add(FLASH_FWD_OP)
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        if op in saved_ops or (op is _CHECKPOINT_NAME_OP and args[1] in names):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy_fn)
+
+
+def _named(x: torch.Tensor, name: str, names: Tuple[str, ...]) -> torch.Tensor:
+    """x tagged with `name` where the block's policy keeps it and a backward
+    pass may need it (no copy under no_grad or inference)."""
+    return checkpoint_name(x, name) if name in names and torch.is_grad_enabled() else x
 
 
 # ---------------------------------------------------------------- rotary
@@ -177,7 +257,9 @@ def _normal(shape, std, dtype, device, generator):
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device=None) -> ParamTree:
-    """Random weights in the flax tree layout (unscanned `layer_{i}`).
+    """Random weights in the flax tree layout (unscanned `layer_{i}`; with
+    `fused_qkv`, `attn/qkv` [E,H+2Hkv,D] and `mlp/gate_up` [E,2F] in place of
+    q, k, v and gate, up).
 
     The distributions follow the JAX module's initializers (embedding
     normal(0.02), matrices lecun-normal over their fan-in, norm scales one),
@@ -197,13 +279,18 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
     params: ParamTree = {"embedding": _normal((cfg.vocab_size, E), 0.02, wd, dev, g)}
     for i in range(cfg.n_layers):
+        if cfg.fused_qkv:
+            attn = {"qkv": dense((E, H + 2 * Hkv, D), E)}
+            mlp = {"gate_up": dense((E, 2 * F), E)}
+        else:
+            attn = {"q": dense((E, H, D), E), "k": dense((E, Hkv, D), E),
+                    "v": dense((E, Hkv, D), E)}
+            mlp = {"gate": dense((E, F), E), "up": dense((E, F), E)}
         params[f"layer_{i}"] = {
             "attn_norm": norm(),
-            "attn": {"q": dense((E, H, D), E), "k": dense((E, Hkv, D), E),
-                     "v": dense((E, Hkv, D), E), "o": dense((H, D, E), H * D)},
+            "attn": dict(attn, o=dense((H, D, E), H * D)),
             "mlp_norm": norm(),
-            "mlp": {"gate": dense((E, F), E), "up": dense((E, F), E),
-                    "down": dense((F, E), F)},
+            "mlp": dict(mlp, down=dense((F, E), F)),
         }
     params["final_norm"] = norm()
     if not cfg.tie_embeddings:
@@ -233,9 +320,13 @@ class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, p: ParamTree):
         super().__init__()
         self.cfg = cfg
-        self.q = nn.Parameter(p["q"]["kernel"])  # [E,H,D]
-        self.k = nn.Parameter(p["k"]["kernel"])  # [E,Hkv,D]
-        self.v = nn.Parameter(p["v"]["kernel"])
+        self.names = remat_names(cfg)
+        if cfg.fused_qkv:
+            self.qkv = nn.Parameter(p["qkv"]["kernel"])  # [E,H+2Hkv,D]: q | k | v
+        else:
+            self.q = nn.Parameter(p["q"]["kernel"])  # [E,H,D]
+            self.k = nn.Parameter(p["k"]["kernel"])  # [E,Hkv,D]
+            self.v = nn.Parameter(p["v"]["kernel"])
         self.o = nn.Parameter(p["o"]["kernel"])  # [H,D,E]
 
     def _proj(self, x, w):
@@ -252,13 +343,20 @@ class Attention(nn.Module):
 
     def forward(self, x, positions, rope=None, kv_cache=None):
         cfg = self.cfg
-        if cfg.attention == "flash" and kv_cache is None:
+        if cfg.attention == "flash" and kv_cache is None and not cfg.fused_qkv:
             return self._flash_bhsd(x, positions, rope), None
-        q, k, v = self._proj(x, self.q), self._proj(x, self.k), self._proj(x, self.v)
+        if cfg.fused_qkv:
+            # One [E, H+2Hkv, D] projection split into q | k | v, as JAX's
+            # fused branch; v stays a strided view (the kernels take strides).
+            qkv = self._proj(x, self.qkv)
+            q, k, v = qkv.split([cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads], dim=2)
+        else:
+            q, k, v = self._proj(x, self.q), self._proj(x, self.k), self._proj(x, self.v)
         if rope is None:
             rope = _rope_angles(positions, cfg.head_dim, cfg.rope_theta)
         q = _rope_apply(q, *rope)
         k = _rope_apply(k, *rope)
+        q, k, v = (_named(t, "save", self.names) for t in (q, k, v))
         new_cache = None
         if kv_cache is not None:
             # Decode path: append to the cache and attend over the full prefix.
@@ -275,9 +373,19 @@ class Attention(nn.Module):
                 positions_q=positions[0] if positions.ndim > 1 else positions,
                 positions_kv=torch.arange(T, device=x.device),
             )
-        else:
+        elif cfg.attention == "reference":
             out = reference_attention(q, k, v, causal=True)
-        return self._out(out), new_cache
+        else:
+            out = flash_attention(q, k, v, True, None)
+        return self._out(self._name_out(out, flash=kv_cache is None
+                                        and cfg.attention == "flash")), new_cache
+
+    def _name_out(self, out, flash: bool):
+        """JAX names the attention output "attn_out" under `attn` and "save"
+        under `selective`. The flash op's output is already kept under
+        "flash_residuals" by `selective`, so it is not copied a second time."""
+        out = _named(out, "attn_out", self.names)
+        return out if flash else _named(out, "save", self.names)
 
     def _flash_bhsd(self, x, positions, rope):
         """Transpose-free route: projections land in [B,H,S,D] (a strided view
@@ -291,7 +399,8 @@ class Attention(nn.Module):
             rope = _rope_angles(positions, cfg.head_dim, cfg.rope_theta)
         q = _rope_apply_bhsd(q, *rope)
         k = _rope_apply_bhsd(k, *rope)
-        out = flash_attention_bhsd(q, k, v, True, None)
+        q, k, v = (_named(t, "save", self.names) for t in (q, k, v))
+        out = self._name_out(flash_attention_bhsd(q, k, v, True, None), flash=True)
         return self._out(out.transpose(1, 2))
 
 
@@ -299,16 +408,24 @@ class MLP(nn.Module):
     def __init__(self, cfg: ModelConfig, p: ParamTree):
         super().__init__()
         self.cfg = cfg
-        self.gate = nn.Parameter(p["gate"]["kernel"])
-        self.up = nn.Parameter(p["up"]["kernel"])
+        self.names = remat_names(cfg)
+        if cfg.fused_qkv:
+            self.gate_up = nn.Parameter(p["gate_up"]["kernel"])  # [E,2F]: gate | up
+        else:
+            self.gate = nn.Parameter(p["gate"]["kernel"])
+            self.up = nn.Parameter(p["up"]["kernel"])
         self.down = nn.Parameter(p["down"]["kernel"])
 
     def forward(self, x):
         dt = self.cfg.dtype
         x = x.to(dt)
-        gate = x @ self.gate.to(dt)
-        up = x @ self.up.to(dt)
-        return (nn.functional.silu(gate) * up) @ self.down.to(dt)
+        if self.cfg.fused_qkv:
+            gate, up = (x @ self.gate_up.to(dt)).chunk(2, dim=-1)
+        else:
+            gate = x @ self.gate.to(dt)
+            up = x @ self.up.to(dt)
+        # selective keeps the narrow down output; gate and up are recomputed.
+        return _named((nn.functional.silu(gate) * up) @ self.down.to(dt), "save", self.names)
 
 
 class Block(nn.Module):
@@ -318,11 +435,12 @@ class Block(nn.Module):
         self.attn = Attention(cfg, p["attn"])
         self.mlp_norm = RMSNorm(p["mlp_norm"]["scale"], cfg.norm_eps)
         self.mlp = MLP(cfg, p["mlp"])
+        self.names = remat_names(cfg)
 
     def forward(self, x, positions, rope=None, kv_cache=None):
         attn_out, new_cache = self.attn(self.attn_norm(x), positions, rope, kv_cache)
         x = x + attn_out
-        x = x + self.mlp(self.mlp_norm(x))
+        x = x + self.mlp(_named(self.mlp_norm(x), "save", self.names))
         return x, new_cache
 
 
@@ -345,6 +463,7 @@ class Transformer(nn.Module):
             Block(cfg, params[f"layer_{i}"]) for i in range(cfg.n_layers))
         self.final_norm = RMSNorm(params["final_norm"]["scale"], cfg.norm_eps)
         self.lm_head = None if cfg.tie_embeddings else nn.Parameter(params["lm_head"]["kernel"])
+        self._remat_context = remat_context(cfg.remat_policy) if cfg.remat else None
         self.to(self.device)
 
     def named_tree_params(self) -> Iterator[Tuple[Tuple[str, ...], str]]:
@@ -354,9 +473,10 @@ class Transformer(nn.Module):
         for i in range(len(self.layers)):
             for norm in ("attn_norm", "mlp_norm"):
                 yield (f"layer_{i}", norm, "scale"), f"layers.{i}.{norm}.scale"
-            for n in ("q", "k", "v", "o"):
+            fused = self.cfg.fused_qkv
+            for n in ("qkv", "o") if fused else ("q", "k", "v", "o"):
                 yield (f"layer_{i}", "attn", n, "kernel"), f"layers.{i}.attn.{n}"
-            for n in ("gate", "up", "down"):
+            for n in ("gate_up", "down") if fused else ("gate", "up", "down"):
                 yield (f"layer_{i}", "mlp", n, "kernel"), f"layers.{i}.mlp.{n}"
         yield ("final_norm", "scale"), "final_norm.scale"
         if self.lm_head is not None:
@@ -383,14 +503,17 @@ class Transformer(nn.Module):
             positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
         x = self.embedding[tokens].to(cfg.dtype)
         rope = _rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-        # JAX's nn.remat(Block, policy=None): nothing inside a block is kept
-        # for the backward pass; the block reruns (K1 included) when its
-        # gradient is taken.
+        # JAX's nn.remat(Block, policy=...): a block keeps for the backward
+        # pass only what its policy names and reruns the rest when its
+        # gradient is taken (K1 included, except where "selective" keeps the
+        # flash forward's outputs).
         remat = cfg.remat and kv_caches is None and torch.is_grad_enabled()
         new_caches = []
         for i, blk in enumerate(self.layers):
             if remat:
-                x = checkpoint(_block_no_cache, blk, x, positions, rope, use_reentrant=False)
+                kw = {"context_fn": self._remat_context} if self._remat_context else {}
+                x = checkpoint(_block_no_cache, blk, x, positions, rope, use_reentrant=False,
+                               **kw)
                 continue
             cache = kv_caches[i] if kv_caches is not None else None
             x, new_cache = blk(x, positions, rope, cache)

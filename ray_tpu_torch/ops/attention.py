@@ -11,9 +11,14 @@ and for CPU tensors take `flash_forward_reference` and
 fallback from a kernel to its plain version on the GPU: a tensor the kernel
 does not take raises.
 
-`flash_attention` and `flash_attention_bhsd` are `torch.autograd.Function`s
-over the two wrappers, with the residuals of JAX's `_flash_fwd_rule`
-(q, k, v, out, lse).
+The two wrappers are registered as the custom ops `ray_tpu_torch::flash_fwd`
+(returning out and lse) and `ray_tpu_torch::flash_bwd`, with `flash_bwd` as
+`flash_fwd`'s gradient and the residuals of JAX's `_flash_fwd_rule`
+(q, k, v, out, lse). Being dispatched ops, both are visible to a
+selective-checkpoint policy (`torch.utils.checkpoint`): the `selective`
+remat policy keeps `flash_fwd`'s outputs, JAX's `flash_residuals`, so K1 is
+not rerun in the backward pass. `flash_attention` and `flash_attention_bhsd`
+call `flash_fwd`.
 """
 
 from __future__ import annotations
@@ -31,6 +36,11 @@ _NEG_INF = -1e30
 # Launch counts of the port's kernels: each wrapper adds one where it
 # launches its kernel and nowhere else.
 LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0}
+# Runs of the custom ops `flash_fwd` and `flash_bwd` on any device: what
+# LAUNCHES counts on the GPU, and what the CPU tests count (they run the
+# plain versions). A selective-checkpoint replay of saved outputs does not
+# run the op and counts nothing in either.
+CALLS = {"flash_fwd": 0, "flash_bwd": 0}
 
 
 def _use_kernel(t: torch.Tensor) -> bool:
@@ -342,37 +352,67 @@ def flash_backward(q, k, v, out, lse, g, *, causal: bool, scale: float,
                                 layout=layout)
 
 
-# ------------------------------------------------------------------ autograd
+# ------------------------------------------------------------------ custom ops
 
-class _FlashAttention(torch.autograd.Function):
-    """forward = K1 (`flash_forward`), backward = K2 (`flash_backward`), with
-    the residuals of ray_tpu's `_flash_fwd_rule`: (q, k, v, out, lse). Under
-    a non-reentrant checkpoint the forward reruns in the backward pass and K2
-    reads the lse of that rerun."""
+@torch.library.custom_op("ray_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                  scale: float, layout: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`flash_forward` as a dispatched op: (out, lse)."""
+    CALLS["flash_fwd"] += 1
+    return flash_forward(q, k, v, causal=causal, scale=scale, layout=layout)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale, layout):
-        out, lse = flash_forward(q, k, v, causal=causal, scale=scale, layout=layout)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale, ctx.layout = causal, scale, layout
-        return out
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, out, lse, g, causal=ctx.causal,
-                                    scale=ctx.scale, layout=ctx.layout)
-        return dq, dk, dv, None, None, None
+@_flash_fwd_op.register_fake
+def _(q, k, v, causal, scale, layout):
+    B, H, S = (q.shape[0], q.shape[2], q.shape[1]) if layout == "bshd" else q.shape[:3]
+    return q.new_empty(q.shape), q.new_empty((B, H, S), dtype=torch.float32)
+
+
+@torch.library.custom_op("ray_tpu_torch::flash_bwd", mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                  lse: torch.Tensor, g: torch.Tensor, causal: bool, scale: float,
+                  layout: str) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`flash_backward` as a dispatched op: (dq, dk, dv)."""
+    CALLS["flash_bwd"] += 1
+    return flash_backward(q, k, v, out, lse, g, causal=causal, scale=scale, layout=layout)
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, out, lse, g, causal, scale, layout):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _flash_fwd_setup(ctx, inputs, output):
+    q, k, v, causal, scale, layout = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.causal, ctx.scale, ctx.layout = causal, scale, layout
+
+
+def _flash_fwd_grad(ctx, g, _g_lse):
+    # lse is a residual, never differentiated (JAX's flash_attention returns
+    # out alone), so its cotangent is ignored.
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = _flash_bwd_op(q, k, v, out, lse, g, ctx.causal, ctx.scale, ctx.layout)
+    return dq, dk, dv, None, None, None
+
+
+_flash_fwd_op.register_autograd(_flash_fwd_grad, setup_context=_flash_fwd_setup)
+
+# The op a selective-checkpoint policy keeps to spare K1's rerun.
+FLASH_FWD_OP = torch.ops.ray_tpu_torch.flash_fwd.default
 
 
 def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None):
-    """Flash attention. q:[B,S,H,D], k/v:[B,T,Hkv,D] (GQA: Hkv divides H)."""
+    """Flash attention. q:[B,S,H,D], k/v:[B,T,Hkv,D] (GQA: Hkv divides H).
+    Under a non-reentrant checkpoint that does not keep `flash_fwd`'s
+    outputs, the forward reruns in the backward pass and K2 reads the lse of
+    that rerun."""
     eff_scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    return _FlashAttention.apply(q, k, v, causal, eff_scale, "bshd")
+    return _flash_fwd_op(q, k, v, causal, eff_scale, "bshd")[0]
 
 
 def flash_attention_bhsd(q, k, v, causal: bool = True, scale: Optional[float] = None):
     """Flash attention in the kernel's native layout: q:[B,H,S,D],
     k/v:[B,Hkv,T,D] -> [B,H,S,D]."""
     eff_scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    return _FlashAttention.apply(q, k, v, causal, eff_scale, "bhsd")
+    return _flash_fwd_op(q, k, v, causal, eff_scale, "bhsd")[0]

@@ -8,6 +8,10 @@ The step keeps JAX's contract: (state, batch{tokens, targets, mask?}) ->
 optimizer state, and the same automatic switch to the chunked fused
 cross-entropy. A mesh of more than one device (FSDP, tensor parallelism) is
 ROADMAP Queue 1 item 1c and raises.
+
+`state_tree` and `state_from_tree` map a TrainState to and from the tree a
+JAX user checkpoints (`{"step", "params", "opt_state"}`), so a run saved by
+either package through `checkpoint.save` resumes in the other.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ray_tpu_torch.models.convert import unstack_layers
 from ray_tpu_torch.models.transformer import (
     ModelConfig,
     Transformer,
@@ -26,6 +31,22 @@ from ray_tpu_torch.models.transformer import (
     init_params,
 )
 from ray_tpu_torch.parallel.optim import global_norm, tree_leaves, tree_unflatten
+
+
+def _leaf_paths(tree, prefix=()) -> list:
+    if isinstance(tree, dict):
+        return [p for key in sorted(tree) for p in _leaf_paths(tree[key], prefix + (key,))]
+    return ["/".join(prefix)]
+
+
+def _as_tensor(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {key: _tree_map(fn, val) for key, val in tree.items()}
+    return fn(tree)
 
 # Logits bytes (b * s * vocab * 4) above which the step takes the fused
 # cross-entropy, as spmd.py:136 decides.
@@ -169,3 +190,49 @@ def eval_logits_fn(model: Transformer, rules=None):
             return functional_call(model, named, (tokens,))
 
     return forward
+
+
+def state_tree(state: TrainState) -> dict:
+    """The tree of `state` as a JAX user checkpoints a TrainState:
+    ``{"step", "params", "opt_state"}``, with `opt_state` nested as
+    `optax.adamw`'s chain nests its state for a constant learning rate,
+    ``(ScaleByAdamState(count, mu, nu), EmptyState(), EmptyState())``, here
+    ``((count, mu, nu), (), ())``; step and count are int32 scalars as in
+    JAX. The tensors are the state's own (a checkpoint save snapshots them);
+    params are in the unscanned `layer_{i}` layout, which JAX reads with
+    `scan_layers=False` or through its engine."""
+    opt = state.opt_state
+    return {"step": np.asarray(state.step, np.int32), "params": state.params,
+            "opt_state": ((np.asarray(opt.count, np.int32), opt.mu, opt.nu), (), ())}
+
+
+def state_from_tree(model: Transformer, cfg: ModelConfig, optimizer, tree) -> TrainState:
+    """A TrainState over `model`'s parameters from a tree `state_tree` wrote
+    or a JAX user saved (the host tree of `checkpoint.restore`, or its
+    tensors on a device): the params are loaded into the model, the adam
+    moments copied into a fresh `optimizer.init` state, and the step and
+    count set. Scanned `layers` stacks are split into `layer_{i}`. Raises
+    ValueError when the tree is not adamw's or its leaves do not match the
+    model's parameters in path, shape or the optimizer's dtype."""
+    params = _tree_map(_as_tensor, unstack_layers(tree["params"], cfg.n_layers))
+    state, _ = init_state(model, cfg, optimizer, params=params)
+    adam = tree["opt_state"][0]
+    if not isinstance(adam, (tuple, list)) or len(adam) != 3:
+        raise ValueError("state_from_tree: opt_state[0] is not optax.adamw's "
+                         "ScaleByAdamState(count, mu, nu)")
+    count, mu, nu = adam
+    with torch.no_grad():
+        for name, src, dst in (("mu", mu, state.opt_state.mu), ("nu", nu, state.opt_state.nu)):
+            src = unstack_layers(src, cfg.n_layers)
+            if _leaf_paths(src) != _leaf_paths(dst):
+                raise ValueError(f"state_from_tree: {name}'s leaves are not the params'")
+            for path, s, d in zip(_leaf_paths(dst), tree_leaves(src), tree_leaves(dst)):
+                s = _as_tensor(s)
+                if s.dtype != d.dtype or tuple(s.shape) != tuple(d.shape):
+                    raise ValueError(f"state_from_tree: {name}/{path} is {s.dtype} "
+                                     f"{tuple(s.shape)}, the optimizer keeps {d.dtype} "
+                                     f"{tuple(d.shape)}")
+                d.copy_(s)
+    state.opt_state.count = int(count)
+    state.step = int(tree["step"])
+    return state

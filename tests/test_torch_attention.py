@@ -293,3 +293,78 @@ def test_flash_backward_kernel_matches_reference_on_card(B, S, T, H, Hkv, D, cau
     with pytest.raises(TypeError):
         tattn.flash_backward(q.float(), k.float(), v.float(), out.float(), lse, go.float(),
                              causal=True, scale=1.0, layout=layout)
+
+
+# The custom ops' registration: schema, autograd and fake (meta) kernels.
+_OPCHECK_CPU = ("test_schema", "test_autograd_registration", "test_faketensor")
+
+
+def _op_inputs(layout, device, dtype, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    B, H, Hkv, S, D = 2, 4, 2, 80, 64
+    qs, ks = ((B, S, H, D), (B, S, Hkv, D)) if layout == "bshd" else ((B, H, S, D), (B, Hkv, S, D))
+    return [torch.randn(s, generator=g, device=device, dtype=dtype) for s in (qs, ks, ks, qs)]
+
+
+def _opcheck(layout, device, dtype, test_utils):
+    q, k, v, go = _op_inputs(layout, device, dtype)
+    scale = q.shape[-1] ** -0.5
+    kw = {} if test_utils is None else {"test_utils": test_utils}
+    torch.library.opcheck(torch.ops.ray_tpu_torch.flash_fwd,
+                          (q.requires_grad_(), k.requires_grad_(), v.requires_grad_(),
+                           True, scale, layout), **kw)
+    out, lse = tattn.flash_forward(q.detach(), k.detach(), v.detach(), causal=True,
+                                   scale=scale, layout=layout)
+    torch.library.opcheck(torch.ops.ray_tpu_torch.flash_bwd,
+                          (q.detach(), k.detach(), v.detach(), out, lse, go, True, scale,
+                           layout), **kw)
+
+
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_flash_custom_ops_registration(layout):
+    """The plain versions behind the ops on the CPU (f32); opcheck's AOT
+    dispatch check, slow to start, runs in the card's test below."""
+    _opcheck(layout, "cpu", torch.float32, _OPCHECK_CPU)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_flash_custom_ops_registration_on_card(layout):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the K1 and K2 kernels have no CPU mode")
+    _opcheck(layout, "cuda", torch.bfloat16, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,k1_per_layer", [("full", 2), ("attn", 2), ("dots", 2),
+                                                 ("selective", 1)])
+def test_remat_policy_kernel_launches_on_card(policy, k1_per_layer):
+    """A 2-layer bf16 model (head_dim 64) takes one step's gradient under
+    each remat policy: K2 launches once per layer, K1 twice (its forward
+    reruns in the backward pass) except under "selective", which keeps its
+    outputs; the gradients are the "full" policy's (the embedding's summed
+    with atomics, so 1e-5 relative rather than bit for bit)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the K1 and K2 kernels have no CPU mode")
+    from ray_tpu_torch.models import transformer as ttr
+
+    def grads(pol):
+        cfg = ttr.ModelConfig(vocab_size=512, hidden=256, n_layers=2, n_heads=4,
+                              n_kv_heads=2, mlp_dim=512, max_seq=256, remat=True,
+                              remat_policy=pol, tie_embeddings=True)
+        model = ttr.Transformer(cfg, device="cuda",
+                                generator=torch.Generator(device="cuda").manual_seed(0))
+        tokens = torch.randint(0, 512, (2, 192), device="cuda",
+                               generator=torch.Generator(device="cuda").manual_seed(1))
+        tattn.LAUNCHES.update(flash_fwd=0, flash_bwd=0)
+        loss = ttr.cross_entropy_loss(model(tokens), tokens)
+        loss.backward()
+        torch.cuda.synchronize()
+        return dict(tattn.LAUNCHES), {n: p.grad for n, p in model.named_parameters()}
+
+    launches, got = grads(policy)
+    assert launches == {"flash_fwd": 2 * k1_per_layer, "flash_bwd": 2}
+    _, ref = grads("full")
+    for name, g in got.items():
+        rel = float((g.float() - ref[name].float()).norm() / ref[name].float().norm())
+        assert rel <= 1e-5, (name, rel)

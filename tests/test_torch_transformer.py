@@ -88,10 +88,8 @@ def test_random_init_is_seeded_and_shaped():
 
 @pytest.mark.parametrize("overrides,match", [
     ({"attention": "ring"}, "item 7"), ({"attention": "ulysses"}, "item 7"),
-    ({"fused_qkv": True}, "item 1b"), ({"moe_experts": 4}, "item 7"),
-    ({"remat": True, "remat_policy": "selective"}, "item 1a"),
-    ({"remat": True, "remat_policy": "dots"}, "item 1a"),
-], ids=["ring", "ulysses", "fused_qkv", "moe", "remat-selective", "remat-dots"])
+    ({"moe_experts": 4}, "item 7"),
+], ids=["ring", "ulysses", "moe"])
 def test_later_slice_routes_raise(overrides, match):
     with pytest.raises(NotImplementedError, match=match):
         Transformer(get_config("test-tiny", **overrides), device="cpu")
