@@ -23,9 +23,18 @@ Phases, each printing one JSON record per line:
   model    llama3-8b at full width and depth, random weights: the Transformer's
            flash route (K1 in every layer) against its plain-attention route
   serve    LLMServer(llama3-8b) answering 4 concurrent greedy requests, each
-           answer held against a teacher-forced plain-attention forward; then
-           one decode step and one prefill chunk profiled (wall time against
-           device busy time, torch.profiler)
+           answer held against a teacher-forced plain-attention forward and
+           carrying the flight recorder's timing; then one decode step and one
+           prefill chunk profiled (wall time against device busy time,
+           torch.profiler)
+  prefix   the paged KV prefix cache on the serve phase's weights: a cold
+           request (1,024-token prefix + its own suffix) fills a 1 GiB cache,
+           then 4 prefix + suffix requests hit it at offset 1,024 together
+           (no K1 launch, the attached rows bit for bit the cold prefill's,
+           every token through the teacher-forced check, no lease left, each
+           insert reading back only the blocks the cache lacked), then
+           the same 4 on an engine without a cache; TTFT, TPOT and timing per
+           request, the attach and the insert read-back in ms
   train    init_state/build_train_step on llama3-1b (full width and depth,
            [4, 2048], remat, fused cross-entropy) and on gpt2-125m ([8, 1024],
            no remat, plain cross-entropy): step-1 gradients of the flash route
@@ -50,7 +59,8 @@ are judged by), the kernels line and, last, {"ok": true, "device": {...}}.
 The kernel
 launch counts, both kernels', are set to 0 just before each main path (the
 model's forward, the served requests, each configuration's and each remat
-policy's train steps) and read just after; the kernels line's
+policy's train steps, the prefix phase's cold request, its hits and its
+uncached requests) and read just after; the kernels line's
 `launches` are K1's on the served requests and K2's on llama3-1b's steps,
 with every path's counts beside them.
 
@@ -152,7 +162,8 @@ TRAIN_RUNS = [("llama3-1b", 4, 2048, True, 6), ("gpt2-125m", 8, 1024, False, 6)]
 K1_MAIN_SHAPE = (128, 32, 8, 128, True, "bshd")  # 3 of the 4 served offset-0 chunks
 K1_MAX_SEQ_SHAPE = (2048, 32, 8, 128, True, "bshd")  # the served max_seq, one prompt
 
-PHASES = ("build", "k1", "k2", "head", "model", "serve", "train", "remat", "fused", "ckpt")
+PHASES = ("build", "k1", "k2", "head", "model", "serve", "prefix", "train", "remat", "fused",
+          "ckpt")
 
 
 def emit(record: dict) -> None:
@@ -606,19 +617,54 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+def _teacher_forced(eng, prompts, answers) -> tuple:
+    """(exact, total, worst gap) of served answers against a teacher-forced
+    forward over prompt + answer with the engine's plain attention (fresh
+    cache): each served token is that forward's argmax or `gap` logits
+    below it."""
+    import torch
+
+    from ray_tpu_torch.llm._engine import _forward_cached
+
+    cfg = eng.cfg
+    exact = total = 0
+    worst_gap = 0.0
+    with torch.inference_mode():
+        for p, answer in zip(prompts, answers):
+            seq = p + answer[:-1]
+            L = len(seq)
+            shape = (1, L, cfg.n_kv_heads, cfg.head_dim)
+            caches = [(torch.zeros(shape, dtype=cfg.dtype, device=eng.device),
+                       torch.zeros(shape, dtype=cfg.dtype, device=eng.device))
+                      for _ in range(cfg.n_layers)]
+            pos = torch.arange(L, device=eng.device)
+            mask = (pos[:, None] >= pos[None, :])[None]
+            logits = _forward_cached(eng.params, cfg, torch.tensor([seq], device=eng.device),
+                                     pos[None], caches, torch.zeros(1, dtype=torch.long,
+                                                                   device=eng.device), mask)[0]
+            preds = logits[len(p) - 1:]
+            served = torch.tensor(answer, device=eng.device)
+            gap = preds.max(-1).values - preds.gather(-1, served[:, None])[:, 0]
+            exact += int((preds.argmax(-1) == served).sum())
+            total += len(served)
+            worst_gap = max(worst_gap, float(gap.max()))
+            del logits, caches
+    return exact, total, worst_gap
+
+
 def phase_serve(margin: float, name: str = "llama3-8b", device: str = "cuda",
                 lengths=(20, 100, 255, 300), max_seq: int = 2048,
-                seed: int = 1) -> dict:
+                seed: int = 1) -> tuple:
     """LLMServer(llama3-8b) answers 4 concurrent greedy requests; every served
     token is held against a teacher-forced forward over prompt + answer with
     the engine's plain attention (fresh cache): it must be that forward's
     argmax or within `margin` logits of it (random weights give near-ties
-    that bf16 rounding may flip)."""
+    that bf16 rounding may flip). Every reply carries the flight recorder's
+    `timing`. Returns the record and (cfg, params) for the prefix phase."""
     import numpy as np
     import torch
 
     from ray_tpu_torch.llm import LLMConfig, LLMServer
-    from ray_tpu_torch.llm._engine import _forward_cached
     from ray_tpu_torch.ops.attention import LAUNCHES
 
     t0 = time.time()
@@ -646,27 +692,8 @@ def phase_serve(margin: float, name: str = "llama3-8b", device: str = "cuda",
     chunks = eng.scheduler_stats()["prefill_chunks"] - chunks0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else None
 
-    exact = total = 0
-    worst_gap = 0.0
-    with torch.inference_mode():
-        for p, r in zip(prompts, results):
-            seq = p + r["token_ids"][:-1]
-            L = len(seq)
-            shape = (1, L, cfg.n_kv_heads, cfg.head_dim)
-            caches = [(torch.zeros(shape, dtype=cfg.dtype, device=eng.device),
-                       torch.zeros(shape, dtype=cfg.dtype, device=eng.device))
-                      for _ in range(cfg.n_layers)]
-            pos = torch.arange(L, device=eng.device)
-            mask = (pos[:, None] >= pos[None, :])[None]
-            logits = _forward_cached(eng.params, cfg, torch.tensor([seq], device=eng.device),
-                                     pos[None], caches, torch.zeros(1, dtype=torch.long,
-                                                                   device=eng.device), mask)[0]
-            preds = logits[len(p) - 1:]
-            served = torch.tensor(r["token_ids"], device=eng.device)
-            gap = preds.max(-1).values - preds.gather(-1, served[:, None])[:, 0]
-            exact += int((preds.argmax(-1) == served).sum())
-            total += len(served)
-            worst_gap = max(worst_gap, float(gap.max()))
+    exact, total, worst_gap = _teacher_forced(eng, prompts,
+                                              [r["token_ids"] for r in results])
     asyncio.run(server.shutdown())
     profile = None
     if device == "cuda":
@@ -687,9 +714,232 @@ def phase_serve(margin: float, name: str = "llama3-8b", device: str = "cuda",
         "launches_expected": {"flash_fwd": cfg.n_layers * len(prompts), "flash_bwd": 0},
         "teacher_forced_exact": exact, "teacher_forced_total": total,
         "worst_logit_gap": worst_gap, "margin": margin, "profile": profile,
+        "timing": [r["timing"] for r in results],
+        # the default cache (llm_prefix_cache_bytes: 16 blocks at llama3-8b)
+        "prefix_cache": eng.prefix_cache_stats(),
     }
     rec["ok"] = (launches == rec["launches_expected"] and chunks > len(prompts)
-                 and all(n == 32 for n in n_tokens) and worst_gap <= margin)
+                 and all(n == 32 for n in n_tokens) and worst_gap <= margin
+                 and all(t is not None and "decode" in t["phases"] for t in rec["timing"]))
+    emit(rec)
+    return rec, (cfg, eng.params)
+
+
+def _serve_engine(eng, prompts, max_tokens: int, tag: str) -> list:
+    """Submit every prompt to the engine at once (greedy, request ids
+    `tag-i`), wait for all, and return per request its tokens, host-clock
+    TTFT (submit to first callback), TPOT (mean gap between the first and
+    last callbacks) and the flight recorder's `request_timing`."""
+    import threading
+
+    from ray_tpu_torch.llm import SamplingParams
+
+    runs = []
+    for i, p in enumerate(prompts):
+        run = {"rid": f"{tag}-{i}", "tokens": [], "times": [], "done": threading.Event()}
+
+        def cb(token, last, run=run):
+            run["times"].append(time.perf_counter())
+            run["tokens"].append(token)
+            if last:
+                run["done"].set()
+
+        run["t0"] = time.perf_counter()
+        eng.submit(p, SamplingParams(max_tokens=max_tokens), cb, request_id=run["rid"])
+        runs.append(run)
+    for run in runs:
+        if not run["done"].wait(timeout=600):
+            raise RuntimeError(f"request {run['rid']} did not finish: {eng.error}")
+    out = []
+    for run, p in zip(runs, prompts):
+        tt = run["times"]
+        out.append({"rid": run["rid"], "prompt_len": len(p), "token_ids": run["tokens"],
+                    "ttft_s": tt[0] - run["t0"],
+                    "tpot_s": (tt[-1] - tt[0]) / max(1, len(tt) - 1),
+                    "timing": eng.request_timing(run["rid"])})
+    return out
+
+
+def _events(eng, rid: str) -> list:
+    return eng._recorder.lookup(rid)["events"]
+
+
+def phase_prefix(cfg, params, margin: float, name: str = "llama3-8b",
+                 device: str = "cuda", seed: int = 2,
+                 prefix_len: int = 1024, suffixes=(64, 100, 128, 192),
+                 cold_suffix: int = 48, max_tokens: int = 32, max_seq: int = 2048) -> dict:
+    """The paged KV prefix cache and the flight recorder on llama3-8b, over the
+    serve phase's weights. Engine A holds a 1 GiB cache (512 blocks of 16
+    tokens, 2 MiB each at this width); engine B has none. One shared prefix
+    of `prefix_len` random tokens: a cold request (prefix + a suffix no other
+    prompt has) fills A's cache, then 4 prefix + suffix prompts run at once
+    on A (each a hit on exactly the prefix's blocks) and then on B. Gates:
+    every hit prefills from `prefix_len`; K1 launches once per layer for the
+    cold request and never for the hits (their chunks start past row 0, the
+    masked route); the rows a hit attached equal the cold prefill's rows bit
+    for bit; every hit token passes the serve phase's teacher-forced check;
+    no lease is left; every reply's timing has `decode`, and the hits'
+    `cache-attach`. Reported: per request TTFT, TPOT and timing on A and B,
+    the attach spans, the insert's read-back and pool times, the cache's
+    counters, and how many hit tokens equal B's. Each insert must read back
+    only the blocks the cache lacked."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.llm._engine import DecodeEngine
+    from ray_tpu_torch.llm.kvcache import PrefixCacheManager
+    from ray_tpu_torch.ops.attention import LAUNCHES
+
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, cfg.vocab_size, prefix_len).tolist()
+    cold = prefix + rng.integers(0, cfg.vocab_size, cold_suffix).tolist()
+    prompts = [prefix + rng.integers(0, cfg.vocab_size, n).tolist() for n in suffixes]
+    bs = 16
+    eng = DecodeEngine(cfg, params, num_slots=4, max_seq=max_seq, seed=seed,
+                       prefix_cache=PrefixCacheManager(bs, 1 << 30), device=device)
+    cache = eng._prefix_cache
+    block_bytes = cfg.n_layers * 2 * bs * cfg.n_kv_heads * cfg.head_dim * cfg.dtype.itemsize
+
+    # The insert's cost, split: the read-back of the blocks the cache lacks
+    # (a block-major device gather, one D2H copy, a host copy per block) and
+    # the rest (the pool's planning, eviction and linking). The first
+    # token's pull has already synchronised the stream, so the read-back
+    # times the copies.
+    inserts = []
+    insert_prompt_kv, read_kv_blocks = eng._insert_prompt_kv, eng._read_kv_blocks
+    insert_missing = cache.insert_missing
+
+    def timed_read_kv_blocks(slot, first, stop):
+        t0 = time.perf_counter()
+        blocks = read_kv_blocks(slot, first, stop)
+        inserts[-1].update(read_blocks=[first, stop],
+                           readback_ms=(time.perf_counter() - t0) * 1e3,
+                           readback_mib=(stop - first) * block_bytes / 2**20)
+        return blocks
+
+    def counted_insert_missing(*a, **kw):
+        added = insert_missing(*a, **kw)
+        inserts[-1]["blocks_added"] = added
+        return added
+
+    def timed_insert_prompt_kv(slot, prompt, adapter, cached_offset):
+        inserts.append({"prompt_len": len(prompt), "cached_offset": cached_offset,
+                        "read_blocks": None, "readback_ms": 0.0})
+        t0 = time.perf_counter()
+        insert_prompt_kv(slot, prompt, adapter, cached_offset)
+        rec = inserts[-1]
+        rec["total_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["pool_ms"] = rec["total_ms"] - rec["readback_ms"]
+
+    eng._insert_prompt_kv, eng._read_kv_blocks = timed_insert_prompt_kv, timed_read_kv_blocks
+    cache.insert_missing = counted_insert_missing
+    try:
+        LAUNCHES.update(flash_fwd=0, flash_bwd=0)
+        cold_res = _serve_engine(eng, [cold], max_tokens, "cold")
+        launches_cold = dict(LAUNCHES)
+        cold_prefill = dict(eng.last_prefill)
+        cold_stats = cache.stats()
+        cold_slot = next(e[3]["slot"] for e in _events(eng, "cold-0") if e[0] == "admitted")
+        with torch.inference_mode():
+            cold_rows = [torch.stack([ck[cold_slot, :prefix_len], cv[cold_slot, :prefix_len]])
+                         for ck, cv in eng._caches]
+        LAUNCHES.update(flash_fwd=0, flash_bwd=0)
+        t0 = time.time()
+        hits = _serve_engine(eng, prompts, max_tokens, "hit")
+        hits_wall = time.time() - t0
+        launches_hits = dict(LAUNCHES)
+        hit_prefill = dict(eng.last_prefill)
+        stats = cache.stats()
+        rows_equal, hit_offsets, attach_attrs = [], [], []
+        with torch.inference_mode():
+            for r in hits:
+                ev = _events(eng, r["rid"])
+                slot = next(e[3]["slot"] for e in ev if e[0] == "admitted")
+                attach_attrs.append(next((e[3] for e in ev if e[0] == "cache-attach"), None))
+                hit_offsets.append(next(e[3]["offset"] for e in ev if e[0] == "prefill-chunk"))
+                rows_equal.append(all(
+                    torch.equal(torch.stack([ck[slot, :prefix_len], cv[slot, :prefix_len]]), ref)
+                    for (ck, cv), ref in zip(eng._caches, cold_rows)))
+        del cold_rows
+    finally:
+        eng.shutdown()
+    leases_active = cache.stats()["leases_active"]
+    recorder = eng.recorder_stats()
+    del eng
+    _empty_cache(device)
+
+    plain = DecodeEngine(cfg, params, num_slots=4, max_seq=max_seq, seed=seed,
+                         prefix_cache=False, device=device)
+    try:
+        LAUNCHES.update(flash_fwd=0, flash_bwd=0)
+        t0 = time.time()
+        misses = _serve_engine(plain, prompts, max_tokens, "plain")
+        misses_wall = time.time() - t0
+        launches_plain = dict(LAUNCHES)
+        exact, total, worst_gap = _teacher_forced(plain, prompts,
+                                                  [r["token_ids"] for r in hits])
+    finally:
+        plain.shutdown()
+    del plain
+    _empty_cache(device)
+
+    same = sum(int(a == b) for r, m in zip(hits, misses)
+               for a, b in zip(r["token_ids"], m["token_ids"]))
+    attach_ms = [r["timing"]["phases"]["cache-attach"]["seconds"] * 1e3
+                 if r["timing"] and "cache-attach" in r["timing"]["phases"] else None
+                 for r in hits]
+    rec = {
+        "phase": "prefix", "model": name, "num_slots": 4, "max_seq": max_seq,
+        "block_size": bs, "block_mib": block_bytes / 2**20, "capacity_blocks":
+            (1 << 30) // block_bytes, "prefix_tokens": prefix_len,
+        "suffix_tokens": list(suffixes), "cold_suffix_tokens": cold_suffix,
+        "max_tokens": max_tokens,
+        "cold": cold_res[0], "hits": hits, "no_cache": misses,
+        "hits_wall_s": hits_wall, "no_cache_wall_s": misses_wall,
+        "ttft_hit_over_miss": [h["ttft_s"] / m["ttft_s"] for h, m in zip(hits, misses)],
+        "ttft_hits_over_cold": [h["ttft_s"] / cold_res[0]["ttft_s"] for h in hits],
+        "attach_ms": attach_ms, "attach_attrs": attach_attrs, "inserts": inserts,
+        "cold_prefill": cold_prefill, "hit_prefill": hit_prefill,
+        "hit_prefill_offsets": hit_offsets, "cold_prefix_cache_stats": cold_stats,
+        "prefix_cache_stats": stats, "leases_active_at_end": leases_active,
+        "recorder": recorder,
+        "launches": {"cold": launches_cold, "hits": launches_hits, "no_cache": launches_plain},
+        "attached_rows_equal_cold_rows": rows_equal,
+        "teacher_forced_exact": exact, "teacher_forced_total": total,
+        "worst_logit_gap": worst_gap, "margin": margin,
+        "hit_tokens_equal_no_cache": same,
+        "hit_tokens_total": sum(len(r["token_ids"]) for r in hits),
+    }
+    n_prefix_blocks = prefix_len // bs
+    # Each insert reads back only the blocks the cache lacked: all of the
+    # cold prompt's, and past the shared prefix for each hit.
+    expected_reads = [(0, len(cold) // bs)] + [(n_prefix_blocks, len(p) // bs) for p in prompts]
+    read_blocks_ok = (
+        sorted(tuple(r["read_blocks"]) for r in inserts if r["read_blocks"])
+        == sorted(r for r in expected_reads if r[1] > r[0]))
+    rec["inserts_read_only_new_blocks"] = read_blocks_ok
+    rec["ok"] = (
+        cold_prefill["offset"] == 0
+        and cold_stats["inserted_blocks"] == len(cold) // bs
+        and launches_cold == {"flash_fwd": cfg.n_layers, "flash_bwd": 0}
+        and launches_hits == {"flash_fwd": 0, "flash_bwd": 0}
+        and launches_plain == {"flash_fwd": cfg.n_layers * len(prompts), "flash_bwd": 0}
+        and hit_prefill["offset"] == prefix_len
+        and hit_offsets == [prefix_len] * len(prompts)
+        and all(a is not None and a["cached_tokens"] == prefix_len for a in attach_attrs)
+        and stats["hits"] == len(prompts)
+        and stats["hit_tokens"] == len(prompts) * prefix_len
+        and stats["inserted_blocks"] == len(cold) // bs + sum(
+            len(p) // bs - n_prefix_blocks for p in prompts)
+        and read_blocks_ok
+        and leases_active == 0 and recorder["live"] == 0
+        and all(rows_equal) and len(rows_equal) == len(prompts)
+        and worst_gap <= margin
+        and all(len(r["token_ids"]) == max_tokens for r in (*cold_res, *hits, *misses))
+        and all(r["timing"] is not None and "decode" in r["timing"]["phases"]
+                for r in (*cold_res, *hits, *misses))
+        and all(a is not None for a in attach_ms)
+    )
     emit(rec)
     return rec
 
@@ -1446,10 +1696,13 @@ def main(argv=None) -> int:
     k2 = phase_k2() if "k2" in phases else []
     head = phase_head() if "head" in phases else []
     model = phase_model() if "model" in phases else None
-    serve = None
-    if "serve" in phases:
+    serve = prefix = None
+    if "serve" in phases or "prefix" in phases:
         margin = model["tolerance"] if model else phase_model()["tolerance"]
-        serve = phase_serve(margin=margin)
+        serve, weights = phase_serve(margin=margin)
+        if "prefix" in phases:
+            prefix = phase_prefix(*weights, margin=margin)
+        del weights
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": "free", "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
@@ -1457,7 +1710,7 @@ def main(argv=None) -> int:
     remat = phase_remat() if "remat" in phases else None
     fused = phase_fused() if "fused" in phases else None
     ckpt = phase_ckpt() if "ckpt" in phases else None
-    records = [r for r in (*k1, *k2, *head, model, serve, *train, remat, fused, ckpt)
+    records = [r for r in (*k1, *k2, *head, model, serve, prefix, *train, remat, fused, ckpt)
                if r is not None]
     failed = [r.get("phase") for r in records if not r["ok"]]
     if build is not None and build["spill_bytes"]:
@@ -1473,6 +1726,7 @@ def main(argv=None) -> int:
     main_rec = _k1_record(k1, K1_MAIN_SHAPE)
     k2_rec = k2[K2_CASES.index(K2_MAIN_SHAPE)]
     by_path = {"model_llama3-8b": model["launches"], "serve_llama3-8b": serve["launches"]}
+    by_path.update({f"prefix_{p}_llama3-8b": c for p, c in prefix["launches"].items()})
     by_path.update({f"train_{r['model']}": r["launches"] for r in train})
     by_path.update({f"remat_{p}_llama3-1b": c for p, c in remat["launches"].items()})
     by_path["fused_llama3-1b"] = fused["launches"]

@@ -27,6 +27,25 @@ class Config:
     # floor weight
     llm_batch_tenant: str = "batch"
     llm_batch_weight: float = 1e-6
+    # token rows per paged KV prefix-cache block; prefixes are reused at
+    # whole-block granularity
+    llm_kv_block_size: int = 16
+    # host bytes for the per-engine paged KV prefix cache; repeated prompt
+    # prefixes attach cached KV and prefill suffix-only (0 disables)
+    llm_prefix_cache_bytes: int = 32 << 20
+    # finished request records kept in each engine's flight-recorder ring:
+    # per-request phase events (queue/prefill-chunk/cache-attach/decode)
+    # recorded host-side off the dispatch path (0 disables the recorder)
+    llm_flight_records: int = 256
+    # time-to-first-token SLO: completions whose TTFT exceeds this count as
+    # SLO breaches in the burn/goodput counters
+    llm_slo_ttft_s: float = 0.5
+    # per-request mean inter-token-latency SLO: completions whose mean TPOT
+    # exceeds this count as SLO breaches
+    llm_slo_tpot_s: float = 0.05
+    # allowed SLO breach fraction: burn rate = windowed breach fraction /
+    # this budget, so burn > 1 means the error budget is being exhausted
+    llm_slo_error_budget: float = 0.01
 
 
 CONFIG = Config()

@@ -1,9 +1,10 @@
 """ray_tpu_torch.llm: LLM serving on one GPU, in process.
 
 Twin of `ray_tpu/llm/__init__.py` for this slice: `LLMConfig`, `load_model`
-and `LLMServer` (generate / shutdown) over the port's `DecodeEngine`. The
-Serve deployment, the OpenAI router, the DP/PD routers, streaming and the
-flight-recorder `timing` breakdown are later slices (ROADMAP.md).
+and `LLMServer` (generate with its flight-recorder `timing` breakdown,
+recorder_stats, shutdown) over the port's `DecodeEngine`.
+The Serve deployment, the OpenAI router, the DP/PD routers and streaming are
+later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -131,6 +132,7 @@ class LLMServer:
                        top_k: int = 0, stop_token_id: Optional[int] = None,
                        tenant: Optional[str] = None) -> Dict[str, Any]:
         t0 = time.monotonic()
+        rid = uuid.uuid4().hex  # keys the engine's flight-recorder record
         token_ids = (
             self._tokenizer.encode(prompt) if isinstance(prompt, str) else list(prompt)
         )
@@ -152,7 +154,7 @@ class LLMServer:
             token_ids,
             SamplingParams(max_tokens=max_tokens, temperature=temperature,
                            top_k=top_k, stop_token_id=stop_token_id),
-            cb, tenant=tenant, request_id=uuid.uuid4().hex,
+            cb, tenant=tenant, request_id=rid,
         )
         await done
         gen = list(out)
@@ -168,7 +170,16 @@ class LLMServer:
             },
             "ttft_s": ttft[0],
             "latency_s": time.monotonic() - t0,
+            # Flight-recorder phase breakdown: queue/prefill/decode seconds,
+            # TTFT/TPOT.
+            "timing": self._engine.request_timing(rid),
         }
+
+    async def recorder_stats(self) -> dict:
+        """Flight-recorder counters for this replica's engine, with each
+        tenant's SLO burn rate ("burn_rates"; the targets are
+        llm_slo_ttft_s, llm_slo_tpot_s and llm_slo_error_budget)."""
+        return self._engine.recorder_stats()
 
     async def shutdown(self):
         """Stop the stepper and fail queued requests so blocked submitters

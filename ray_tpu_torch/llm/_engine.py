@@ -14,8 +14,16 @@ first chunk (offset 0): its visibility mask there is exactly the top-left
 causal mask over the chunk's own rows, so that chunk's attention runs the K1
 flash-forward kernel over the rows it just wrote.
 
-Not in this slice (each raises): LoRA adapters, speculative decoding, the
-prefix cache, tensor parallelism, guided decoding, PD transfer, streams.
+As JAX's engine does by default, it builds a paged KV prefix cache
+(`llm/kvcache/`, the host block pool) and a request flight recorder
+(`llm/flight_recorder.py`). A prefix-cache hit attaches exactly its cached
+rows [0, cached_offset) — JAX pads them to a bucket because it compiles one
+attach program per bucket — and prefills the suffix from that offset through
+the masked route.
+
+Not in this slice (each raises): LoRA adapters, speculative decoding, tensor
+parallelism, guided decoding, PD transfer, streams, the cache's device and
+disk tiers.
 """
 
 from __future__ import annotations
@@ -34,6 +42,8 @@ import torch.nn.functional as F
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch._config import CONFIG
 from ray_tpu_torch.checkpoint import restore
+from ray_tpu_torch.llm.flight_recorder import FlightRecorder, ServeMetrics
+from ray_tpu_torch.llm.kvcache import PrefixCacheManager
 from ray_tpu_torch.llm.scheduler.scheduler import (
     EngineOverloadedError,
     Request,
@@ -207,13 +217,11 @@ class DecodeEngine:
                  tenant_quota: Optional[int] = None,
                  tp=1, device=None):
         if lora_config:
-            raise _not_in_slice("lora_config (multi-LoRA serving)", "Queue 1, item 2")
+            raise _not_in_slice("lora_config (multi-LoRA serving)", "Queue 1, item 7")
         if spec_config:
-            raise _not_in_slice("spec_config (speculative decoding)", "Queue 1, item 2")
-        if prefix_cache:
-            raise _not_in_slice("prefix_cache (paged KV prefix cache)", "Queue 1, item 2")
+            raise _not_in_slice("spec_config (speculative decoding)", "Queue 1, item 7")
         if tp != 1:
-            raise _not_in_slice("tp > 1 (tensor-parallel serving)", "Queue 1, item 2")
+            raise _not_in_slice("tp > 1 (tensor-parallel serving)", "Queue 1, item 7")
         if cfg.fused_qkv or "qkv" in params.get("layer_0", {}).get("attn", {}):
             raise ValueError(
                 "DecodeEngine reads separate q, k, v and gate, up matrices "
@@ -258,16 +266,49 @@ class DecodeEngine:
             b *= 2
         buckets.append(self.T)
         self._prefill_buckets = tuple(buckets)
+        # Paged KV prefix cache: host-side ref-counted block pool + radix
+        # prefix index. A repeated prompt prefix attaches its cached KV and
+        # prefills only the suffix. prefix_cache=None (or True) builds one
+        # from the config flags; False disables; a PrefixCacheManager
+        # instance is used as-is.
+        if prefix_cache is None or prefix_cache is True:
+            prefix_cache = None
+            if CONFIG.llm_prefix_cache_bytes > 0:
+                prefix_cache = PrefixCacheManager(
+                    CONFIG.llm_kv_block_size, CONFIG.llm_prefix_cache_bytes,
+                    name=f"engine-{id(self):x}",
+                )
+        self._prefix_cache = prefix_cache or None
         if max_queue_depth is None:
             max_queue_depth = CONFIG.llm_max_queue_depth
         if token_budget is None:
             token_budget = CONFIG.llm_sched_token_budget
+        # The prefix-cache lookup is injected so admission plans chunks over
+        # the uncached suffix only.
+        lookup = None
+        if self._prefix_cache is not None:
+            cache = self._prefix_cache
+
+            def lookup(prompt, adapter):
+                return cache.lookup(prompt, namespace=adapter)
+
         self._sched = Scheduler(
             num_slots=self.B, buckets=self._prefill_buckets, max_seq=self.T,
             token_budget=token_budget, max_queue_depth=max_queue_depth,
-            multi_step=self._multi_step, wfq=wfq, tenant_weights=tenant_weights,
-            tenant_quota=tenant_quota,
+            multi_step=self._multi_step, lookup=lookup, wfq=wfq,
+            tenant_weights=tenant_weights, tenant_quota=tenant_quota,
         )
+        # Request-lifecycle flight recorder + per-tenant SLO burn windows:
+        # phase events accrue host-side off the dispatch path; each
+        # completion folds into its tenant's bounded window, and
+        # recorder_stats() reports the burn rates.
+        self._recorder = FlightRecorder(name=f"engine-{id(self):x}")
+        self._serve_metrics = ServeMetrics(name=f"{id(self):x}")
+        # Diagnostics for benches/tests: shape of the most recent prefill
+        # dispatch (offset > 0 means a prefix-cache hit prefilled suffix-only)
+        # and of the most recent cache attach.
+        self.last_prefill: Optional[dict] = None
+        self.last_attach: Optional[dict] = None
         # The stepper launches on the stream that was current here.
         self._stream = (torch.cuda.current_stream(self.device)
                         if self.device.type == "cuda" else None)
@@ -288,7 +329,7 @@ class DecodeEngine:
         from ray_tpu_torch.models.convert import params_from_jax
 
         if tp != 1:
-            raise _not_in_slice("tp > 1 (tensor-parallel serving)", "Queue 1, item 2")
+            raise _not_in_slice("tp > 1 (tensor-parallel serving)", "Queue 1, item 7")
         device = resolve_device(kwargs.get("device"))
         return cls(cfg, params_from_jax(sharded_params(path), cfg, device), tp=tp, **kwargs)
 
@@ -349,15 +390,16 @@ class DecodeEngine:
                lora: str = "", constraint=None):
         """callback(token_id: int, finished: bool) per generated token.
 
-        tenant keys the weighted-fair admission queue; request_id is the
-        cancel() handle. Raises ValueError when the prompt cannot fit the
+        tenant keys the weighted-fair admission queue; request_id keys the
+        flight-recorder record (`request_timing()`) and is the cancel()
+        handle. Raises ValueError when the prompt cannot fit the
         engine's sequence budget (it is never silently truncated),
         EngineOverloadedError when the tenant's quota or the global depth cap
         is hit, and RuntimeError when the stepper is dead."""
         if lora:
-            raise _not_in_slice("LoRA adapters", "Queue 1, item 2")
+            raise _not_in_slice("LoRA adapters", "Queue 1, item 7")
         if constraint is not None:
-            raise _not_in_slice("guided decoding", "Queue 1, item 2")
+            raise _not_in_slice("guided decoding", "Queue 1, item 4")
         self._check_alive()
         token_ids = list(token_ids) or [0]  # empty prompt decodes from token 0
         if len(token_ids) > self.T - 1:
@@ -372,10 +414,27 @@ class DecodeEngine:
         headroom = self.T - 1 - len(token_ids)
         if sampling.max_tokens > headroom:
             sampling = dataclasses.replace(sampling, max_tokens=max(1, headroom))
+        tenant = "" if tenant is None else tenant
         req = Request("prompt", prompt=token_ids, sampling=sampling, callback=callback,
-                      tenant="" if tenant is None else tenant)
+                      tenant=tenant)
         req.rid = request_id
-        self._sched.submit(req)
+        req.rec = self._start_record(request_id, tenant, prompt_len=len(token_ids))
+        try:
+            self._sched.submit(req)
+        except EngineOverloadedError:
+            summary = self._recorder.finish(req.rec, status="rejected")
+            if summary is not None:
+                self._serve_metrics.record(summary)
+            raise
+
+    def _start_record(self, request_id: Optional[str], tenant: str, **mark_attrs):
+        """Open a flight-recorder record for one admission (no trace
+        context: the port has no tracing plane)."""
+        rec = self._recorder.start(request_id, tenant=tenant)
+        if rec is not None:
+            rec.mark("queued", tenant=tenant,
+                     depth=self._sched.queue_depth(), **mark_attrs)
+        return rec
 
     def cancel(self, request_id: Optional[str]) -> bool:
         """Cancel one request by the id its submit carried. Still-queued
@@ -391,11 +450,121 @@ class DecodeEngine:
             self._pending_cancels.add(request_id)
         return True
 
-    def scheduler_stats(self) -> dict:
-        return self._sched.stats()
+    def _insert_prompt_kv(self, slot: int, prompt: List[int], adapter: int,
+                          cached_offset: int):
+        """Populate the prefix cache from the slot's freshly prefilled rows.
+        Skips when the prompt has no full block beyond what the cache already
+        held (cached_offset tokens)."""
+        cache = self._prefix_cache
+        bs = cache.block_size
+        n = (len(prompt) // bs) * bs
+        if n == 0 or n <= cached_offset:
+            return
+        # JAX pulls rows [0, n) and lets the radix walk dedup the cached
+        # prefix; the port reads back only the blocks the cache lacks and
+        # has room for (insert_missing), with the same counters.
+        ck = self._caches[0][0]
+        block_nbytes = (len(self._caches) * 2 * bs * ck.shape[2] * ck.shape[3]
+                        * ck.element_size())
+        cache.insert_missing(prompt[:n],
+                             lambda first, stop: self._read_kv_blocks(slot, first, stop),
+                             block_nbytes, namespace=adapter)
 
-    @staticmethod
-    def _fail_cancelled_request(req: Request):
+    def _read_kv_blocks(self, slot: int, first: int, stop: int) -> List[torch.Tensor]:
+        """Host copies of slot's cache blocks [first, stop): one owned
+        [L, 2, block_size, Hkv, D] tensor per block, the pool's layout. The
+        rows are gathered block-major on the device and pulled in one copy;
+        each block is then one contiguous host copy (the pool accounts every
+        block's bytes, so no block may be a view of a shared buffer)."""
+        bs = self._prefix_cache.block_size
+        a, b = first * bs, stop * bs
+        rows = torch.stack([torch.stack([ck[slot, a:b], cv[slot, a:b]])
+                            for ck, cv in self._caches])
+        L, _, _, H, D = rows.shape
+        blocks = rows.view(L, 2, stop - first, bs, H, D).permute(2, 0, 1, 3, 4, 5)
+        return [blk.clone() for blk in blocks.contiguous().cpu().unbind(0)]
+
+    def prefix_cache_stats(self) -> Optional[dict]:
+        """Hit/eviction/residency counters of the paged KV prefix cache (None
+        when the cache is disabled)."""
+        if self._prefix_cache is None:
+            return None
+        return self._prefix_cache.stats()
+
+    def lease_prefix(self, token_ids: List[int], lora: str = ""):
+        """Full-coverage lease of this engine's longest cached prefix of
+        token_ids (no len-1 cap: the caller wants every cached row) — the
+        export side of a prefix transfer. None when the cache is disabled or
+        cold. The caller must release() the lease. Its caller is the DP/PD
+        routers' prefix pull (ROADMAP.md, Queue 1 item 9)."""
+        if lora:
+            raise _not_in_slice("LoRA adapters", "Queue 1, item 7")
+        if self._prefix_cache is None:
+            return None
+        return self._prefix_cache.lease_prefix(token_ids, namespace=0)
+
+    def insert_prefix(self, token_ids: List[int], kv, lora: str = "") -> int:
+        """Feed a prefix's KV rows [L, 2, P, Hkv, D] (numpy or a CPU tensor)
+        fetched elsewhere into this engine's cache — the import side: the
+        next lookup for these tokens hits locally and prefills suffix-only.
+        Returns blocks added. The import side of the routers' prefix pull
+        (ROADMAP.md, Queue 1 item 9)."""
+        if lora:
+            raise _not_in_slice("LoRA adapters", "Queue 1, item 7")
+        if self._prefix_cache is None:
+            return 0
+        return self._prefix_cache.insert(token_ids, kv, namespace=0)
+
+    def scheduler_stats(self) -> dict:
+        """Iteration-level scheduler occupancy (per-phase token counters,
+        interleaving, queue depths), the prefix cache's counters and
+        `recorder_stats()`."""
+        out = self._sched.stats()
+        if self._prefix_cache is not None:
+            out["prefix_cache"] = self._prefix_cache.stats()
+        out["recorder"] = self.recorder_stats()
+        return out
+
+    def recorder_stats(self) -> dict:
+        """Flight-recorder counters, and each tenant's SLO burn rate over its
+        recent completions ("burn_rates": windowed breach fraction over
+        llm_slo_error_budget, "" for untenanted traffic). ray_tpu reads the
+        rates through `autopilot_signals()` and util.metrics gauges, which
+        the port does not have yet (ROADMAP.md, Queue 1 items 8 and 9)."""
+        return {**self._recorder.stats(),
+                "burn_rates": self._serve_metrics.burn_rates()}
+
+    def request_timing(self, rid: str) -> Optional[dict]:
+        """Per-request timing breakdown (the response-metadata payload):
+        queue/prefill/decode phase durations, TTFT, mean TPOT, e2e — from
+        the flight recorder's ring."""
+        summary = self._recorder.lookup(rid)
+        if summary is None:
+            return None
+        return {
+            "request_id": summary["rid"],
+            "queue_s": summary["queue_s"],
+            "ttft_s": summary["ttft_s"],
+            "tpot_s": summary["tpot_s"],
+            "e2e_s": summary["e2e_s"],
+            "tokens": summary["tokens"],
+            "route": summary["route"],
+            "phases": {
+                name: {"count": p["count"],
+                       "seconds": round(p["seconds"], 6)}
+                for name, p in summary["phases"].items()
+            },
+            "trace_id": summary["trace_id"],
+        }
+
+    def _fail_cancelled_request(self, req: Request):
+        """Retire a cancelled not-yet-active request: its flight record
+        retires as "cancelled" and the callback observes the terminal
+        sentinel exactly once (the scheduler released its lease)."""
+        rec, req.rec = req.rec, None
+        summary = self._recorder.finish(rec, status="cancelled")
+        if summary is not None:
+            self._serve_metrics.record(summary)
         if req.callback is not None:
             try:
                 req.callback(-1, True)
@@ -418,6 +587,7 @@ class DecodeEngine:
         for s in self._sched.slots:
             if s.active and s.rid == rid:
                 s.active = False
+                self._finish_record(s, status="cancelled")
                 if s.callback is not None:
                     try:
                         s.callback(-1, True)
@@ -435,7 +605,9 @@ class DecodeEngine:
 
     def _fail_all(self):
         """Fail every active and queued request (callback(-1, True)) so
-        submitters unwind instead of hanging."""
+        submitters unwind instead of hanging; queued requests' prefix leases
+        release in the scheduler's drain, and every live flight record
+        retires as "dropped"."""
         for slot in self._sched.slots:
             if slot.active and slot.callback is not None:
                 slot.active = False
@@ -449,6 +621,7 @@ class DecodeEngine:
                     req.callback(-1, True)
                 except Exception:
                     pass  # teardown must proceed past a broken callback
+        self._recorder.close()
 
     def shutdown(self):
         """Idempotent. Stops the stepper, then fails every request that is
@@ -465,31 +638,92 @@ class DecodeEngine:
                 return b
         return self.T
 
+    def _attach_kv(self, slot: int, kv: torch.Tensor):
+        """Write a cached KV prefix into slot's cache rows [0, P).
+        kv: [L, 2, P, Hkv, D] on the host, owned by the caller. One H2D copy
+        on the engine's stream; from pageable memory it returns once the
+        rows are staged, so the caller may drop kv afterwards."""
+        kv = kv.to(self.device)
+        P = kv.shape[2]
+        for i, (ck, cv) in enumerate(self._caches):
+            ck[slot, :P] = kv[i, 0]
+            cv[slot, :P] = kv[i, 1]
+
     def _exec_chunk(self, chunk: ScheduledChunk):
-        """Dispatch one scheduled prefill chunk; the LAST chunk samples the
-        request's first token (the one per-admission host pull) and
-        activates the slot."""
+        """Dispatch one scheduled prefill chunk. The FIRST chunk of a
+        cache-hit request attaches the leased prefix rows; the LAST chunk
+        samples the request's first token (the one per-admission host pull),
+        feeds the prompt's rows to the prefix cache and activates the
+        slot."""
         req = chunk.request
+        rec = req.rec
         slot = req.slot
         offset = req.prefilled
+        if chunk.is_first and req.lease is not None:
+            t_attach = time.time()
+            # Attach exactly the cached rows [0, cached_offset), then prefill
+            # only the suffix (in chunks). The lease pins the blocks until
+            # the rows are copied out of them; it releases in a finally — on
+            # an attach failure the stepper dies and the scheduler drain
+            # would release it too, but only after req.lease was cleared
+            # here, so the release must not depend on the happy path.
+            tier = req.lease.tier
+            try:
+                # lease.kv() is a new tensor: the copy reads no pool memory.
+                self._attach_kv(slot, req.lease.kv())
+            finally:
+                req.lease.release()
+                req.lease = None
+            if rec is not None:
+                # Host-stamped: the span covers the host concatenation and
+                # the staged H2D copy.
+                rec.span("cache-attach", t_attach, time.time(),
+                         cached_tokens=req.cached_offset, tier=tier)
+            self.last_attach = {"tier": tier, "cached_tokens": req.cached_offset}
+        t_chunk = time.time()
         padded = np.zeros((1, chunk.bucket), np.int64)
         padded[0, : len(chunk.tokens)] = chunk.tokens
         last_logits = self._prefill_at(self._dev(padded), slot, offset, req.prompt_len)
         self._sched.chunk_done(chunk)
+        if rec is not None:
+            rec.span("prefill-chunk", t_chunk, time.time(),
+                     bucket=chunk.bucket, offset=offset,
+                     tokens=len(chunk.tokens), chunk=req.chunks - 1)
         # The host lens mirror advances with every chunk: the decode write
         # gate keeps interleaved decode dispatches off a mid-prefill slot,
         # and an accurate lens is the backstop.
         self._lens[slot] = req.prefilled
         if not chunk.is_last:
             return
+        self.last_prefill = {
+            "bucket": chunk.bucket, "offset": req.cached_offset,
+            "prompt_len": req.prompt_len, "chunks": req.chunks,
+        }
         first_row = last_logits.cpu().numpy()
         first = _sample_host(first_row, req.sampling, self._np_rng)
+        if self._prefix_cache is not None:
+            self._insert_prompt_kv(slot, req.prompt, req.adapter, req.cached_offset)
         self._start_slot(req, first)
 
     def _start_slot(self, req: Request, first: int):
         self._sched.start_decode(req, first)
         self._last_token[req.slot] = first
         self._emit(req.slot, first)
+
+    def _finish_record(self, s, status: str = "ok"):
+        """Retire a slot's flight record exactly once: the decode phase
+        aggregates into ONE span (first..last token) and the completion
+        summary folds into the SLO burn windows. status="cancelled"
+        is the disconnect path: it stays out of the SLO good/bad books."""
+        rec, s.rec = s.rec, None
+        if rec is None:
+            return
+        tt = rec.token_times
+        if tt:
+            rec.span("decode", tt[0], tt[-1], tokens=len(tt))
+        summary = self._recorder.finish(rec, status=status)
+        if summary is not None:
+            self._serve_metrics.record(summary)
 
     def _emit(self, slot: int, token: int):
         s = self._sched.slots[slot]
@@ -498,10 +732,18 @@ class DecodeEngine:
             or (s.params.stop_token_id is not None and token == s.params.stop_token_id)
         )
         self._sched.note_emitted(slot)
+        if s.rec is not None:
+            s.rec.token()  # host timestamp; TTFT/TPOT derive from these
+            if done:
+                # Retire the record BEFORE the callback observes
+                # finished=True: a caller reading request_timing() the
+                # moment its future resolves sees the finished summary.
+                self._finish_record(s)
         try:
             s.callback(token, done)
         except Exception:
             done = True
+            self._finish_record(s)  # callback-abort path: books still balance
         if done:
             s.active = False
 

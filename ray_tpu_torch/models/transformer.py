@@ -121,7 +121,7 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.attention in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attention={cfg.attention!r} (ops/ring_attention.py) is ROADMAP "
-            f"Queue 1 item 7 (parallel ops) of the port"
+            f"Queue 1 item 10 (parallel ops) of the port"
         )
     if cfg.attention not in ("flash", "reference"):
         raise ValueError(f"unknown attention route {cfg.attention!r}")
@@ -129,7 +129,7 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
     if cfg.moe_experts > 0:
         raise NotImplementedError(
-            "moe_experts > 0 (ops/moe.py) is ROADMAP Queue 1 item 7 (parallel "
+            "moe_experts > 0 (ops/moe.py) is ROADMAP Queue 1 item 10 (parallel "
             "ops) of the port"
         )
 
@@ -255,6 +255,19 @@ def _normal(shape, std, dtype, device, generator):
     return torch.randn(shape, generator=generator, device=device, dtype=dtype) * std
 
 
+# Std of a unit normal truncated to [-2, 2]: flax's variance_scaling divides
+# by it so the truncated draw keeps the asked-for variance.
+_TRUNC_STD = 0.87962566103423978
+
+
+def _truncated_normal(shape, std, dtype, device, generator):
+    """flax's "truncated_normal" variance scaling: a unit normal cut at +-2,
+    rescaled to std. Drawn in f32, then cast."""
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (w * (std / _TRUNC_STD)).to(dtype)
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device=None) -> ParamTree:
     """Random weights in the flax tree layout (unscanned `layer_{i}`; with
@@ -262,7 +275,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     q, k, v and gate, up).
 
     The distributions follow the JAX module's initializers (embedding
-    normal(0.02), matrices lecun-normal over their fan-in, norm scales one),
+    normal(0.02), matrices flax's lecun-normal over their fan-in, a normal
+    truncated at two standard deviations, norm scales one),
     drawn from `generator`, a torch.Generator on `device` (seeded with 0 when
     not given). JAX's PRNG gives other numbers from the same seed, so tests
     hand both packages the same numpy weights instead."""
@@ -272,7 +286,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     E, H, Hkv, D, F = cfg.hidden, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.mlp_dim
 
     def dense(shape, fan_in):
-        return {"kernel": _normal(shape, 1.0 / math.sqrt(fan_in), wd, dev, g)}
+        return {"kernel": _truncated_normal(shape, 1.0 / math.sqrt(fan_in), wd, dev, g)}
 
     def norm():
         return {"scale": torch.ones(E, dtype=torch.float32, device=dev)}

@@ -86,9 +86,41 @@ def test_random_init_is_seeded_and_shaped():
     assert sum(p.numel() for p in model.parameters()) == cfg.num_params()
 
 
+def test_matrices_are_flax_lecun_normal():
+    """The port's matrices against flax's lecun_normal at [4096, 1024] f32
+    (fan-in 4096), in units of 1/sqrt(fan_in): a normal cut at +-2 and
+    rescaled by 1/0.8796, so no |w| above 2/0.8796; std 1 within 1 %; the
+    1st, 50th and 99th percentiles within 2 % of flax's (2 % of the std
+    for the median, which sits at 0). Every matrix of init_params keeps
+    the cut."""
+    from flax.linen.initializers import lecun_normal
+
+    from ray_tpu_torch.models.transformer import _truncated_normal
+
+    shape, fan_in = (4096, 1024), 4096
+    ref = np.asarray(lecun_normal()(jax.random.PRNGKey(0), shape, jnp.float32))
+    got = _truncated_normal(shape, 1.0 / np.sqrt(fan_in), torch.float32, "cpu",
+                            torch.Generator().manual_seed(0)).numpy()
+    ref, got = ref * np.sqrt(fan_in), got * np.sqrt(fan_in)
+    bound = 2.0 / 0.8796 + 1e-6
+    assert np.abs(ref).max() <= bound and np.abs(got).max() <= bound
+    assert abs(got.std() - 1.0) <= 0.01 and abs(ref.std() - 1.0) <= 0.01
+    for q in (1, 50, 99):
+        p_ref, p_got = np.percentile(ref, q), np.percentile(got, q)
+        assert abs(p_got - p_ref) <= 0.02 * max(abs(p_ref), 1.0), (q, p_got, p_ref)
+    cfg = get_config("test-tiny")
+    params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    layer = params["layer_0"]
+    for w, fan in ((layer["attn"]["q"]["kernel"], cfg.hidden),
+                   (layer["attn"]["o"]["kernel"], cfg.n_heads * cfg.head_dim),
+                   (layer["mlp"]["down"]["kernel"], cfg.mlp_dim),
+                   (params["lm_head"]["kernel"], cfg.hidden)):
+        assert float(w.abs().max()) * np.sqrt(fan) <= bound
+
+
 @pytest.mark.parametrize("overrides,match", [
-    ({"attention": "ring"}, "item 7"), ({"attention": "ulysses"}, "item 7"),
-    ({"moe_experts": 4}, "item 7"),
+    ({"attention": "ring"}, "item 10"), ({"attention": "ulysses"}, "item 10"),
+    ({"moe_experts": 4}, "item 10"),
 ], ids=["ring", "ulysses", "moe"])
 def test_later_slice_routes_raise(overrides, match):
     with pytest.raises(NotImplementedError, match=match):
