@@ -35,6 +35,25 @@ Phases, each printing one JSON record per line:
            insert reading back only the blocks the cache lacked), then
            the same 4 on an engine without a cache; TTFT, TPOT and timing per
            request, the attach and the insert read-back in ms
+  guided   LLMServer(llama3-8b, the serve phase's weights made again from its
+           seed, their sums checked equal) answering a regex,
+           a JSON schema and a grammar request beside an unguided one
+           (generate(guided=...)): each text valid under its spec, every
+           guided token through the teacher-forced check with the replayed
+           host mask added, every ConstraintState released; compile ms at
+           vocab 128,256, the host mask's ms per token, and the unguided
+           request's TPOT beside guided slots (multi-step off) and without
+  stream   on that server: generate_stream's text and open_stream's tokens
+           equal generate's; a guided stream closed after 3 tokens frees its
+           slot within one scheduler iteration (cancel-to-free ms), its
+           record cancelled and its ConstraintState released
+  spec     speculative decoding on the serve prompts and weights: a plain
+           engine, then the ngram draft (k 6) over the prompts twice, the
+           8-layer early-exit draft and the self-draft (k 4 each): every
+           token through the teacher-forced check, K1 launched once per
+           layer per admission plus once per draft layer (the draft's
+           whole-prompt prefill); TTFT, TPOT, tokens/s, acceptance, tokens
+           per verify round, verify and propose ms
   train    init_state/build_train_step on llama3-1b (full width and depth,
            [4, 2048], remat, fused cross-entropy) and on gpt2-125m ([8, 1024],
            no remat, plain cross-entropy): step-1 gradients of the flash route
@@ -60,13 +79,14 @@ The kernel
 launch counts, both kernels', are set to 0 just before each main path (the
 model's forward, the served requests, each configuration's and each remat
 policy's train steps, the prefix phase's cold request, its hits and its
-uncached requests) and read just after; the kernels line's
+uncached requests, the guided batch, the stream phase's requests, each
+spec-phase run) and read just after; the kernels line's
 `launches` are K1's on the served requests and K2's on llama3-1b's steps,
 with every path's counts beside them.
 
 Exits non-zero (and prints no result) without a GPU, without the package
 beside it, or when any phase fails. The only process it starts besides
-itself is nvcc (and nvidia-smi), both waited for; the ckpt phase's threads
+itself is nvcc (and nvidia-smi), both waited for; the threads it starts
 (the checkpoint writer, the engines' steppers) are shut down before it ends.
 """
 
@@ -124,7 +144,7 @@ HEAD_CASES = [(4 * 256, 2048, 128256), (8 * 1024, 768, 50257)]
 # (B, S = T, H, Hkv, D, causal, layout). The first two are the train phase's
 # shapes (llama3-1b [4, 2048] with GQA 32/8, gpt2-125m [8, 1024] MHA), both
 # in the model's bhsd layout; then D 128 (llama3-8b), both layouts, ragged S,
-# and no mask.
+# no mask, and the fused phase's bshd route at llama3-1b's train shape.
 K2_CASES = [
     (4, 2048, 32, 8, 64, True, "bhsd"),
     (8, 1024, 12, 12, 64, True, "bhsd"),
@@ -133,17 +153,26 @@ K2_CASES = [
     (2, 200, 12, 12, 64, True, "bshd"),
     (1, 130, 8, 2, 64, False, "bhsd"),
     (1, 256, 32, 8, 128, False, "bshd"),
+    (4, 2048, 32, 8, 64, True, "bshd"),
 ]
 K2_MAIN_SHAPE = K2_CASES[0]
 
 # (S = T, H, Hkv, D, causal, layout). The serve phase's offset-0 prefill
 # chunks are buckets 32, 128, 128 and 128 (the 256-token budget less one
 # token per slot already decoding, rounded down to a bucket); 256 is the
-# largest bucket under that budget; 512 is the model phase's sequence; 2048 is
-# the served max_seq.
+# largest bucket under that budget; the guided phase's prompts of 40 and 60
+# tokens take their first chunk at bucket 64, those of 80 and 100 at 128; the
+# stream phase's 16-token prompt at 16; 512 is the model phase's sequence
+# (bhsd) and a model draft's whole-prompt prefill of the 300-token serve
+# prompt (bshd; the draft prefills 32, 128, 256 and 512); 2048 is the served
+# max_seq. The ckpt phase serves gpt2-125m (12 heads, D 64) prompts of 24 and
+# 57 tokens. Every shape a main path launches K1 or K2 at is logged
+# (`_ShapeLog`); one missing here is checked after the main paths
+# (`phase_shapes`) and reported as unlisted.
 K1_CASES = [
     (16, 32, 8, 128, True, "bshd"),
     (32, 32, 8, 128, True, "bshd"),
+    (64, 32, 8, 128, True, "bshd"),
     (100, 32, 8, 128, True, "bshd"),
     (128, 32, 8, 128, True, "bshd"),
     (256, 32, 8, 128, True, "bshd"),
@@ -153,17 +182,38 @@ K1_CASES = [
     (2048, 32, 8, 64, True, "bhsd"),
     (512, 32, 8, 128, True, "bhsd"),
     (100, 32, 8, 128, False, "bshd"),
+    (512, 32, 8, 128, True, "bshd"),
+    (32, 12, 12, 64, True, "bshd"),
+    (64, 12, 12, 64, True, "bshd"),
 ]
-# K1 at the train phase's shapes, batch included: (B, S, H, Hkv, D, causal, layout).
-K1_TRAIN_CASES = [(4, 2048, 32, 8, 64, True, "bhsd"), (8, 1024, 12, 12, 64, True, "bhsd")]
+# K1 at the train phase's shapes, batch included: (B, S, H, Hkv, D, causal,
+# layout); the fused phase's route is bshd.
+K1_TRAIN_CASES = [(4, 2048, 32, 8, 64, True, "bhsd"), (8, 1024, 12, 12, 64, True, "bhsd"),
+                  (4, 2048, 32, 8, 64, True, "bshd")]
 
 # The train phase's configurations: (model, batch, seq, remat, timed steps).
 TRAIN_RUNS = [("llama3-1b", 4, 2048, True, 6), ("gpt2-125m", 8, 1024, False, 6)]
 K1_MAIN_SHAPE = (128, 32, 8, 128, True, "bshd")  # 3 of the 4 served offset-0 chunks
 K1_MAX_SEQ_SHAPE = (2048, 32, 8, 128, True, "bshd")  # the served max_seq, one prompt
 
-PHASES = ("build", "k1", "k2", "head", "model", "serve", "prefix", "train", "remat", "fused",
-          "ckpt")
+PHASES = ("build", "k1", "k2", "head", "model", "serve", "prefix", "guided", "stream", "spec",
+          "train", "remat", "fused", "ckpt")
+
+# The guided phase's specs: (spec, max_tokens). The regex finishes at its
+# accepting dead-end (8 tokens); the schema's integer is unbounded, so
+# budget steering must close the object within 48 tokens.
+GUIDED_SPECS = {
+    "regex": ("[0-9]{3}-[0-9]{4}", 8),
+    "schema": ({"json_schema": {"type": "object",
+                                "properties": {"ok": {"type": "boolean"},
+                                               "n": {"type": "integer"}},
+                                "required": ["ok", "n"]}}, 48),
+    "grammar": ({"grammar": {"root": "<word>(,<word>){0,2}", "word": "[a-z]{2,4}"}}, 24),
+}
+# The spec phase's drafts: (name, spec_config, passes over the serve prompts).
+SPEC_DRAFTS = [("ngram", {"method": "ngram", "num_spec_tokens": 6}, 2),
+               ("layers8", {"draft_layers": 8, "num_spec_tokens": 4}, 1),
+               ("self", {"num_spec_tokens": 4}, 1)]
 
 
 def emit(record: dict) -> None:
@@ -318,7 +368,12 @@ def k1_case(S, H, Hkv, D, causal, layout, seed=0, B=1) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from ray_tpu_torch.ops.attention import flash_forward, flash_forward_reference
+    from ray_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_attention_bhsd,
+        flash_forward,
+        flash_forward_reference,
+    )
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     if layout == "bshd":
@@ -351,8 +406,10 @@ def k1_case(S, H, Hkv, D, causal, layout, seed=0, B=1) -> dict:
                                               enable_gqa=True)
 
     library_ms = time_ms(sdpa)
+    op = flash_attention if layout == "bshd" else flash_attention_bhsd
     hosts = {"kernel": host_us(lambda: flash_forward(q, k, v, causal=causal, scale=scale,
                                                      layout=layout)),
+             "op": host_us(lambda: op(q, k, v, causal, scale)),
              "library": host_us(sdpa)}
     bound_ms, bound_by = k1_bound(B, H, Hkv, S, S, D, causal)
     return {
@@ -492,6 +549,90 @@ def phase_k2() -> list:
     return recs
 
 
+def _shape_key(q, k, causal, layout) -> tuple:
+    """(B, S, T, H, Hkv, D, causal, layout) of a K1/K2 call."""
+    if layout == "bshd":
+        (B, S, H, D), T, Hkv = q.shape, k.shape[1], k.shape[2]
+    else:
+        (B, H, S, D), Hkv, T = q.shape, k.shape[1], k.shape[2]
+    return (B, S, T, H, Hkv, D, bool(causal), layout)
+
+
+class _ShapeLog:
+    """While installed, logs the shape of every K1 and K2 launch by the path
+    that is current (`tag`): it wraps the CUDA launchers that the wrappers
+    `flash_forward` and `flash_backward` look up at each call. The counts
+    (`LAUNCHES`) stay the wrappers' own."""
+
+    def __init__(self):
+        self.tag = None
+        self.seen = {"k1": {}, "k2": {}}
+        self._saved = None
+
+    def install(self):
+        from ray_tpu_torch.ops import attention
+
+        fwd, bwd = attention._flash_forward_cuda, attention._flash_backward_cuda
+
+        def log(kernel, q, k, causal, layout):
+            self.seen[kernel].setdefault(_shape_key(q, k, causal, layout), set()).add(self.tag)
+
+        def fwd_logged(q, k, v, *, causal, scale, layout):
+            log("k1", q, k, causal, layout)
+            return fwd(q, k, v, causal=causal, scale=scale, layout=layout)
+
+        def bwd_logged(q, k, v, out, lse, g, *, causal, scale, layout):
+            log("k2", q, k, causal, layout)
+            return bwd(q, k, v, out, lse, g, causal=causal, scale=scale, layout=layout)
+
+        self._saved = (fwd, bwd)
+        attention._flash_forward_cuda, attention._flash_backward_cuda = fwd_logged, bwd_logged
+
+    def uninstall(self):
+        from ray_tpu_torch.ops import attention
+
+        attention._flash_forward_cuda, attention._flash_backward_cuda = self._saved
+
+
+def phase_shapes(log: _ShapeLog, k1: list, k2: list) -> tuple:
+    """Every shape a main path launched K1 or K2 at must be held against the
+    plain version: a shape that no K1/K2 case of this run covered is checked
+    now by `k1_case`/`k2_case` (S = T only; any other is a failure). Returns
+    the record and the new cases' records."""
+    import torch
+
+    def key(rec):
+        sh = rec["shape"]
+        return tuple(sh[n] for n in ("B", "S", "T", "H", "Hkv", "D", "causal", "layout"))
+
+    checked = {"k1": {key(r) for r in k1}, "k2": {key(r) for r in k2}}
+    extra = {"k1": [], "k2": []}
+    for kernel, case in (("k1", k1_case), ("k2", k2_case)):
+        for (B, S, T, H, Hkv, D, causal, layout) in sorted(
+                set(log.seen[kernel]) - checked[kernel], key=str):
+            if S != T:
+                extra[kernel].append({"phase": kernel, "ok": False, "shape": {
+                    "B": B, "S": S, "T": T, "H": H, "Hkv": Hkv, "D": D, "causal": causal,
+                    "layout": layout}, "error": "no check for S != T"})
+                continue
+            rec = (k1_case(S, H, Hkv, D, causal, layout, B=B) if kernel == "k1"
+                   else k2_case(B, S, H, Hkv, D, causal, layout))
+            rec["unlisted"] = True
+            emit(rec)
+            extra[kernel].append(rec)
+            torch.cuda.empty_cache()
+
+    def paths(kernel):
+        return [{"shape": list(k), "paths": sorted(p for p in tags if p)}
+                for k, tags in sorted(log.seen[kernel].items(), key=lambda kv: str(kv[0]))]
+
+    rec = {"phase": "shapes", "k1": paths("k1"), "k2": paths("k2"),
+           "unlisted": {kn: [r["shape"] for r in extra[kn]] for kn in extra}}
+    rec["ok"] = all(r["ok"] for r in (*extra["k1"], *extra["k2"]))
+    emit(rec)
+    return rec, extra
+
+
 def head_case(rows: int, K: int, N: int, seed: int = 0) -> dict:
     """`_matmul_f32` (the tied head: a [rows, K] bf16 @ the f32 table's
     transpose [K, N], as the train steps call it) forward and backward
@@ -617,38 +758,69 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def _teacher_forced(eng, prompts, answers) -> tuple:
-    """(exact, total, worst gap) of served answers against a teacher-forced
-    forward over prompt + answer with the engine's plain attention (fresh
-    cache): each served token is that forward's argmax or `gap` logits
-    below it."""
+def _tf_logits(eng, seq):
+    """Logits [len(seq), V] of one forward over seq with the engine's plain
+    attention route (a fresh cache, the causal mask)."""
     import torch
 
     from ray_tpu_torch.llm._engine import _forward_cached
 
-    cfg = eng.cfg
+    cfg, L = eng.cfg, len(seq)
+    shape = (1, L, cfg.n_kv_heads, cfg.head_dim)
+    caches = [(torch.zeros(shape, dtype=cfg.dtype, device=eng.device),
+               torch.zeros(shape, dtype=cfg.dtype, device=eng.device))
+              for _ in range(cfg.n_layers)]
+    pos = torch.arange(L, device=eng.device)
+    mask = (pos[:, None] >= pos[None, :])[None]
+    return _forward_cached(eng.params, cfg, torch.tensor([seq], device=eng.device),
+                           pos[None], caches, torch.zeros(1, dtype=torch.long,
+                                                         device=eng.device), mask)[0]
+
+
+def _divergence(eng, prompts, ref, got) -> list:
+    """Where each of `got`'s sequences first leaves `ref`'s (None where they
+    agree), with the teacher-forced logits there over prompt + the common
+    prefix: the top logit, ref's token's and got's token's, and their gap."""
+    import torch
+
+    out = []
+    with torch.inference_mode():
+        for p, a, b in zip(prompts, ref, got):
+            i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+            if i is None:
+                out.append(None)
+                continue
+            row = _tf_logits(eng, p + a[:i])[-1].float()
+            out.append({"index": i, "ref_token": a[i], "got_token": b[i],
+                        "top_logit": float(row.max()), "ref_logit": float(row[a[i]]),
+                        "got_logit": float(row[b[i]]),
+                        "gap": float(row[a[i]] - row[b[i]])})
+    return out
+
+
+def _teacher_forced(eng, prompts, answers, masks=None) -> tuple:
+    """(exact, total, worst gap) of served answers against a teacher-forced
+    forward over prompt + answer with the engine's plain attention (fresh
+    cache): each served token is that forward's argmax or `gap` logits
+    below it. masks (one per answer, [len(answer), V] numpy or None): a
+    guided answer's host masks, added to the logits first, as the engine
+    adds them before it samples."""
+    import torch
+
     exact = total = 0
     worst_gap = 0.0
     with torch.inference_mode():
-        for p, answer in zip(prompts, answers):
-            seq = p + answer[:-1]
-            L = len(seq)
-            shape = (1, L, cfg.n_kv_heads, cfg.head_dim)
-            caches = [(torch.zeros(shape, dtype=cfg.dtype, device=eng.device),
-                       torch.zeros(shape, dtype=cfg.dtype, device=eng.device))
-                      for _ in range(cfg.n_layers)]
-            pos = torch.arange(L, device=eng.device)
-            mask = (pos[:, None] >= pos[None, :])[None]
-            logits = _forward_cached(eng.params, cfg, torch.tensor([seq], device=eng.device),
-                                     pos[None], caches, torch.zeros(1, dtype=torch.long,
-                                                                   device=eng.device), mask)[0]
+        for i, (p, answer) in enumerate(zip(prompts, answers)):
+            logits = _tf_logits(eng, p + answer[:-1])
             preds = logits[len(p) - 1:]
+            if masks is not None and masks[i] is not None:
+                preds = preds + torch.as_tensor(masks[i], device=eng.device)
             served = torch.tensor(answer, device=eng.device)
             gap = preds.max(-1).values - preds.gather(-1, served[:, None])[:, 0]
             exact += int((preds.argmax(-1) == served).sum())
             total += len(served)
             worst_gap = max(worst_gap, float(gap.max()))
-            del logits, caches
+            del logits
     return exact, total, worst_gap
 
 
@@ -940,6 +1112,410 @@ def phase_prefix(cfg, params, margin: float, name: str = "llama3-8b",
                 for r in (*cold_res, *hits, *misses))
         and all(a is not None for a in attach_ms)
     )
+    emit(rec)
+    return rec
+
+
+def _smoke_tokenizer():
+    """ByteTokenizer's bytes for ids < 256, so guided specs mask as they do
+    under the default tokenizer, and every other id rendered as "<id>", so
+    the text of random weights (ids up to 128,255) shows every token."""
+    from ray_tpu_torch.llm import ByteTokenizer
+
+    class IdTokenizer(ByteTokenizer):
+        def decode(self, ids):
+            out, run = [], []
+            for i in ids:
+                if 0 <= i < 256:
+                    run.append(i)
+                elif i >= 256:
+                    out.append(super().decode(run))
+                    out.append(f"<{i}>")
+                    run = []
+            return "".join(out) + super().decode(run)
+
+    return IdTokenizer()
+
+
+def _guided_server(name: str = "llama3-8b", device: str = "cuda", max_seq: int = 2048,
+                   seed: int = 1):
+    """LLMServer over the serve phase's weights (its config and seed make
+    them again) with `_smoke_tokenizer`; the guided and stream phases share
+    it, the spec phase takes its weights."""
+    from ray_tpu_torch.llm import LLMConfig, LLMServer
+
+    return LLMServer(LLMConfig(model_id=name, num_slots=4, max_seq=max_seq, seed=seed,
+                               device=device, tokenizer=_smoke_tokenizer()))
+
+
+def _mask_walk(begin, answer, max_tokens) -> tuple:
+    """The host masks the engine added before each token of a guided answer
+    ([len(answer), V]), replayed on a new state from `begin` (a compiled
+    constraint's), and the host ms per mask call."""
+    import numpy as np
+
+    state = begin("replay")
+    rows, ms = [], []
+    for j, token in enumerate(answer):
+        t0 = time.perf_counter()
+        rows.append(state.mask(None, budget=max_tokens - j))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        state.advance(token)
+    state.release()
+    return np.stack(rows), ms
+
+
+def _fingerprint(params) -> list:
+    """Exact sums (f64) of two of a param tree's tensors: equal trees made
+    from one seed give equal fingerprints."""
+    return [float(params["embedding"].double().sum()),
+            float(params["layer_0"]["attn"]["q"]["kernel"].double().sum())]
+
+
+def phase_guided(server, margin: float, name: str = "llama3-8b", seed: int = 3,
+                 lengths=(40, 60, 80, 100), plain_tokens: int = 32, pairs: int = 2,
+                 serve_fingerprint=None) -> dict:
+    """Guided decoding through LLMServer.generate(guided=...): a regex, a
+    JSON schema and a grammar side by side with an unguided request, then
+    the same 4 prompts unguided. Gates: the regex's text fullmatches it, the
+    schema's parses with its keys and types, the grammar's fullmatches its
+    lowered regex; every guided token is the argmax of the teacher-forced
+    logits plus the replayed host mask, or within `margin` of it (every
+    unguided token without a mask); K1 launches once per layer per
+    admitted prompt; every ConstraintState begun is released; a constraint
+    compiled for another logits width raises at submit; the server's
+    weights are the serve phase's (`serve_fingerprint`, when it ran).
+    Reported: each
+    spec's compile ms at the model's vocab, the host mask's ms per token
+    (cached rows, and a new compile's first walk), TTFT/TPOT per request,
+    and the unguided request's TPOT beside guided slots (multi-step off for
+    the batch) and without them: `pairs` times a mixed batch, then a control
+    batch that differs only in its masks (new prompts of the same lengths,
+    so neither batch hits the prefix cache, and each guided request
+    replaced by an unguided one with the token budget it used)."""
+    import numpy as np
+
+    from ray_tpu_torch.llm import SamplingParams
+    from ray_tpu_torch.llm.generate import compile_constraint, grammar_to_regex
+    from ray_tpu_torch.ops.attention import LAUNCHES
+
+    eng, cfg = server._engine, server._cfg
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+    compile_ms, states, originals = {}, [], {}
+    for key, (spec, _) in GUIDED_SPECS.items():
+        t0 = time.perf_counter()
+        constraint = server._constraints.get(spec)  # compiles, then cached
+        compile_ms[key] = (time.perf_counter() - t0) * 1e3
+        originals[key] = begin = constraint.begin
+
+        def recording_begin(request_id="", begin=begin):
+            states.append(begin(request_id))
+            return states[-1]
+
+        constraint.begin = recording_begin
+
+    def batch(batch_prompts, budgets, guided: bool) -> tuple:
+        """(replies, prefix-cache hit tokens) of the 3 guided (or unguided)
+        requests with these budgets and one unguided request, at once."""
+        async def calls():
+            return await asyncio.gather(*(
+                server.generate(p, max_tokens=n, guided=GUIDED_SPECS[key][0] if guided else None)
+                for key, p, n in zip(GUIDED_SPECS, batch_prompts, budgets)),
+                server.generate(batch_prompts[-1], max_tokens=plain_tokens))
+
+        hits0 = eng.prefix_cache_stats()["hit_tokens"]
+        replies = asyncio.run(calls())
+        return replies, eng.prefix_cache_stats()["hit_tokens"] - hits0
+
+    guided_budgets = [n for _, n in GUIDED_SPECS.values()]
+    asyncio.run(server.generate(prompts[0][:8], max_tokens=2))  # warm-up
+    LAUNCHES.update(flash_fwd=0, flash_bwd=0)
+    t0 = time.time()
+    mixed, mixed_hits = batch(prompts, guided_budgets, True)
+    mixed_wall = time.time() - t0
+    launches = dict(LAUNCHES)
+    tpot_pairs = []
+    for pair in range(pairs):
+        m, m_hits = ((mixed, mixed_hits) if pair == 0 else
+                     batch([rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths],
+                           guided_budgets, True))
+        budgets = [len(r["token_ids"]) for r in m[:len(GUIDED_SPECS)]]
+        c, c_hits = batch([rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths],
+                          budgets, False)
+        tpot_pairs.append({
+            "beside_guided_s": m[-1]["timing"]["tpot_s"],
+            "without_guided_s": c[-1]["timing"]["tpot_s"],
+            "ratio": m[-1]["timing"]["tpot_s"] / c[-1]["timing"]["tpot_s"],
+            "budgets": budgets, "control_tokens": [len(r["token_ids"]) for r in c],
+            "hit_tokens": [m_hits, c_hits],
+            "same_makeup": ([len(r["token_ids"]) for r in c] == budgets + [plain_tokens]
+                            and len(m[-1]["token_ids"]) == plain_tokens
+                            and m_hits == c_hits == 0),
+            "timed": all(r["timing"] is not None for r in (*m, *c))})
+
+    texts = {key: r["text"] for key, r in zip(GUIDED_SPECS, mixed)}
+    valid = {"regex": re.fullmatch(GUIDED_SPECS["regex"][0], texts["regex"]) is not None,
+             "grammar": re.fullmatch(grammar_to_regex(GUIDED_SPECS["grammar"][0]["grammar"]),
+                                     texts["grammar"]) is not None}
+    try:
+        obj = json.loads(texts["schema"])
+        valid["schema"] = (set(obj) == {"ok", "n"} and isinstance(obj["ok"], bool)
+                           and isinstance(obj["n"], int) and not isinstance(obj["n"], bool))
+    except (ValueError, TypeError):
+        valid["schema"] = False
+
+    masks, mask_ms, cold_ms = [], [], []
+    for key, r in zip(GUIDED_SPECS, mixed):
+        spec, max_tokens = GUIDED_SPECS[key]
+        rows, ms = _mask_walk(originals[key], r["token_ids"], max_tokens)
+        masks.append(rows)
+        mask_ms.extend(ms)
+        cold = compile_constraint(spec, server._tokenizer, cfg.vocab_size)
+        cold_ms.extend(_mask_walk(cold.begin, r["token_ids"], max_tokens)[1])
+    masks.append(None)
+    wrong_width = compile_constraint(GUIDED_SPECS["regex"][0], server._tokenizer,
+                                     cfg.vocab_size + 64)
+    try:
+        eng.submit(prompts[0], SamplingParams(max_tokens=2), lambda t, f: None,
+                   constraint=wrong_width)
+        wrong_width_raises = False
+    except ValueError:
+        wrong_width_raises = True
+    exact, total, worst_gap = _teacher_forced(
+        eng, prompts + [prompts[-1]], [r["token_ids"] for r in mixed], masks)
+
+    def brief(r):
+        t = r["timing"]
+        return {"tokens": len(r["token_ids"]), "text": r["text"][:200], "ttft_s": r["ttft_s"],
+                "tpot_s": t["tpot_s"] if t else None, "latency_s": r["latency_s"]}
+
+    rec = {
+        "phase": "guided", "model": name,
+        "vocab": cfg.vocab_size, "prompt_lengths": list(lengths),
+        "compile_ms": compile_ms,
+        "mask_ms_per_token": {"cached_median": statistics.median(mask_ms),
+                              "cached_max": max(mask_ms),
+                              "first_walk_median": statistics.median(cold_ms),
+                              "first_walk_max": max(cold_ms)},
+        "mixed": {key: brief(r) for key, r in zip([*GUIDED_SPECS, "unguided"], mixed)},
+        "tpot_unguided_beside_and_without_guided": tpot_pairs,
+        "mixed_wall_s": mixed_wall, "valid": valid,
+        "launches": launches,
+        "launches_expected": {"flash_fwd": cfg.n_layers * len(mixed), "flash_bwd": 0},
+        "states_begun": len(states), "states_released": sum(st.released for st in states),
+        "wrong_width_raises": wrong_width_raises,
+        "weights_equal_serve": (None if serve_fingerprint is None
+                                else _fingerprint(eng.params) == serve_fingerprint),
+        "teacher_forced_exact": exact, "teacher_forced_total": total,
+        "worst_logit_gap": worst_gap, "margin": margin,
+    }
+    rec["ok"] = (all(valid.values()) and worst_gap <= margin and wrong_width_raises
+                 and rec["weights_equal_serve"] is not False
+                 and launches == rec["launches_expected"]
+                 and len(states) == len(GUIDED_SPECS) * pairs
+                 and all(st.released for st in states)
+                 and all(pr["same_makeup"] and pr["timed"] for pr in tpot_pairs))
+    for key, begin in originals.items():
+        server._constraints.get(GUIDED_SPECS[key][0]).begin = begin
+    emit(rec)
+    return rec
+
+
+def phase_stream(server, seed: int = 4, prompt_len: int = 16, max_tokens: int = 32) -> dict:
+    """Token streams on the guided phase's server, on a prompt of one
+    16-token block, which the prefix cache never serves (a lookup leaves at
+    least the last token to prefill), so every admission takes the same
+    route (K1 over its first chunk): generate_stream's text
+    (every id rendered by `_smoke_tokenizer`) equals generate's for the same
+    greedy prompt, and DecodeEngine.open_stream's tokens equal generate's
+    ids; then a guided stream of up to 300 digits is closed after 3 deltas:
+    its slot must be free within one scheduler iteration (cancel-to-free ms
+    at most twice the stream's median gap between tokens), its record
+    cancelled, its ConstraintState released and no record left live. K1
+    launches once per layer per admitted prompt (4)."""
+    import numpy as np
+
+    from ray_tpu_torch.llm import SamplingParams
+    from ray_tpu_torch.ops.attention import LAUNCHES
+
+    eng, cfg = server._engine, server._cfg
+    prompt = np.random.default_rng(seed).integers(0, cfg.vocab_size, prompt_len).tolist()
+    close_spec = {"regex": "[0-9]{300}"}
+    constraint = server._constraints.get(close_spec)
+    begun = []
+    begin = constraint.begin
+
+    def recording_begin(request_id=""):
+        begun.append(begin(request_id))
+        return begun[-1]
+
+    constraint.begin = recording_begin
+
+    async def scenario():
+        whole = await server.generate(prompt, max_tokens=max_tokens)
+        streamed = [d async for d in server.generate_stream(prompt, max_tokens=max_tokens)]
+        gen = server.generate_stream(prompt, max_tokens=300, guided=close_spec,
+                                     request_id="stream-close")
+        parts, times = [], []
+        for _ in range(3):
+            parts.append(await gen.__anext__())
+            times.append(time.perf_counter())
+        t0 = time.perf_counter()
+        await gen.aclose()  # the client went away
+        while any(s.active for s in eng._sched.slots) and time.perf_counter() - t0 < 30:
+            await asyncio.sleep(0.0005)
+        return whole, streamed, parts, times, (time.perf_counter() - t0) * 1e3
+
+    LAUNCHES.update(flash_fwd=0, flash_bwd=0)
+    whole, streamed, parts, times, cancel_ms = asyncio.run(scenario())
+    opened = list(eng.open_stream(prompt, SamplingParams(max_tokens=max_tokens)))
+    launches = dict(LAUNCHES)
+    constraint.begin = begin
+    timing = eng.request_timing("stream-close")
+    gaps = [b - a for a, b in zip(times, times[1:])]
+    step_ms = statistics.median(gaps) * 1e3 if gaps else None
+    stats = eng.recorder_stats()
+    rec = {
+        "phase": "stream", "prompt_len": prompt_len, "max_tokens": max_tokens,
+        "generate_tokens": whole["token_ids"], "stream_text_equal": "".join(streamed) == whole["text"],
+        "open_stream_equal": opened == whole["token_ids"],
+        "stream_deltas": len(streamed), "closed_after": parts,
+        "cancel_to_free_ms": cancel_ms, "stream_token_gap_ms": step_ms,
+        "closed_record_tokens": timing["tokens"] if timing else None,
+        "closed_state_released": bool(begun) and all(st.released for st in begun),
+        "recorder": stats, "launches": launches,
+        "launches_expected": {"flash_fwd": cfg.n_layers * 4, "flash_bwd": 0},
+    }
+    rec["ok"] = (rec["stream_text_equal"] and rec["open_stream_equal"]
+                 and len(whole["token_ids"]) == max_tokens
+                 and all(p.isdigit() for p in parts)
+                 and not any(s.active for s in eng._sched.slots)
+                 and step_ms is not None and cancel_ms <= 2 * step_ms
+                 and rec["closed_state_released"] and len(begun) == 1
+                 and stats["live"] == 0 and stats["cancelled"] >= 1
+                 and launches == rec["launches_expected"])
+    emit(rec)
+    return rec
+
+
+def phase_spec(cfg, params, margin: float, name: str = "llama3-8b", device: str = "cuda",
+               lengths=(20, 100, 255, 300), seed: int = 1, max_tokens: int = 32,
+               max_seq: int = 2048) -> dict:
+    """Speculative decoding on the serve phase's weights and prompts (4 at
+    once, greedy, 32 tokens, no prefix cache so K1's counts are exact): a
+    plain engine, then one engine per draft of SPEC_DRAFTS: ngram (k 6) over
+    the prompts twice (repeated traffic: the second pass is proposed from
+    the first's continuations), the early-exit head of 8 layers (k 4) and
+    the self-draft (k 4). Gates: every served token passes the teacher-forced
+    check; K1 launches 32 per admitted prompt's first chunk plus the draft's
+    layers per admission (its whole-prompt prefill; 0 for ngram); ngram's
+    second pass and the self-draft accept proposals. Reported per run:
+    TTFT, TPOT, output tokens/s, acceptance, tokens emitted per verify
+    round and per slot-round, the verify round's and the draft's propose
+    ms, where each sequence first leaves the plain engine's and the
+    teacher-forced logits of both tokens there, and which runs served
+    the same tokens."""
+    import numpy as np
+
+    from ray_tpu_torch.llm._engine import DecodeEngine
+    from ray_tpu_torch.ops.attention import LAUNCHES
+
+    rng = np.random.default_rng(seed)  # the serve phase's prompts
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+
+    def run(tag, eng):
+        LAUNCHES.update(flash_fwd=0, flash_bwd=0)
+        t0 = time.time()
+        res = _serve_engine(eng, prompts, max_tokens, tag)
+        wall = time.time() - t0
+        launches = dict(LAUNCHES)
+        exact, total, gap = _teacher_forced(eng, prompts, [r["token_ids"] for r in res])
+        n = [len(r["token_ids"]) for r in res]
+        return {"wall_s": wall, "output_tokens_per_s": sum(n) / wall,
+                "ttft_s": [r["ttft_s"] for r in res], "tpot_s": [r["tpot_s"] for r in res],
+                "tokens": [r["token_ids"] for r in res],
+                "slot_rounds": sum((r["timing"] or {}).get("phases", {}).get(
+                    "spec-verify", {}).get("count", 0) for r in res),
+                "launches": launches, "teacher_forced_exact": exact,
+                "teacher_forced_total": total, "worst_logit_gap": gap,
+                "ok": all(k == max_tokens for k in n) and gap <= margin}
+
+    kw = dict(num_slots=4, max_seq=max_seq, seed=seed, prefix_cache=False, device=device)
+    plain = DecodeEngine(cfg, params, **kw)
+    try:
+        runs = {"plain": run("plain", plain)}
+    finally:
+        plain.shutdown()
+    runs["plain"]["launches_expected"] = {"flash_fwd": cfg.n_layers * len(prompts),
+                                          "flash_bwd": 0}
+    del plain
+    gc.collect()
+    _empty_cache(device)
+    for draft_name, spec_config, passes in SPEC_DRAFTS:
+        eng = DecodeEngine(cfg, params, spec_config=spec_config, **kw)
+        draft = eng._draft
+        layers = getattr(draft, "cfg", None)
+        layers = layers.n_layers if layers is not None else 0
+        rounds_ms, propose_ms = [], []
+        spec_round, propose = eng._spec_round, draft.propose
+
+        def timed_round(plan, spec_round=spec_round, rounds_ms=rounds_ms):
+            t0 = time.perf_counter()
+            spec_round(plan)  # ends in the acceptance pull: synchronized
+            rounds_ms.append((time.perf_counter() - t0) * 1e3)
+
+        def timed_propose(i, slot, propose=propose, propose_ms=propose_ms):
+            t0 = time.perf_counter()
+            out = propose(i, slot)  # a model draft ends in its proposal pull
+            propose_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        eng._spec_round, draft.propose = timed_round, timed_propose
+        try:
+            for p in range(passes):
+                before = dict(eng._spec_counters)
+                n_rounds, n_proposes = len(rounds_ms), len(propose_ms)
+                r = run(f"{draft_name}-{p}", eng)
+                c = {k: eng._spec_counters[k] - before[k] for k in before}
+                r.update(
+                    spec=c, accept_rate=c["accepted_tokens"] / max(1, c["proposed_tokens"]),
+                    emitted_per_round=c["emitted_tokens"] / max(1, c["rounds"]),
+                    emitted_per_slot_round=c["emitted_tokens"] / max(1, r["slot_rounds"]),
+                    verify_round_ms_median=statistics.median(rounds_ms[n_rounds:])
+                    if len(rounds_ms) > n_rounds else None,
+                    propose_ms_median=statistics.median(propose_ms[n_proposes:])
+                    if len(propose_ms) > n_proposes else None,
+                    propose_ms_per_round=sum(propose_ms[n_proposes:]) / max(1, c["rounds"]),
+                    draft_layers=layers,
+                    launches_expected={"flash_fwd": (cfg.n_layers + layers) * len(prompts),
+                                       "flash_bwd": 0},
+                    tokens_equal_plain=sum(int(a == b) for x, y in zip(
+                        r["tokens"], runs["plain"]["tokens"]) for a, b in zip(x, y)),
+                    first_divergence=_divergence(eng, prompts, runs["plain"]["tokens"],
+                                                 r["tokens"]))
+                runs[f"{draft_name}_pass{p + 1}" if passes > 1 else draft_name] = r
+            stats = eng.scheduler_stats()["spec"]
+        finally:
+            eng.shutdown()
+        runs[draft_name if passes == 1 else f"{draft_name}_pass{passes}"]["scheduler_stats"] = stats
+        del eng, draft, spec_round, propose
+        gc.collect()
+        _empty_cache(device)
+    for r in runs.values():
+        r["ok"] = r["ok"] and r["launches"] == r["launches_expected"]
+    groups: dict = {}
+    for key, r in runs.items():  # runs whose 128 tokens are the same
+        groups.setdefault(json.dumps(r["tokens"]), []).append(key)
+    rec = {"phase": "spec", "model": name, "prompt_lengths": list(lengths),
+           "max_tokens": max_tokens, "margin": margin, "runs": runs,
+           "identical_tokens": list(groups.values()),
+           "launches": {k: r["launches"] for k, r in runs.items()}}
+    rec["ok"] = (all(r["ok"] for r in runs.values())
+                 and runs["ngram_pass2"]["spec"]["accepted_tokens"] > 0
+                 and runs["self"]["spec"]["accepted_tokens"] > 0
+                 and all(runs[k]["spec"]["rounds"] > 0 for k in
+                         ("ngram_pass2", "layers8", "self")))
     emit(rec)
     return rec
 
@@ -1695,22 +2271,55 @@ def main(argv=None) -> int:
     k1 = phase_k1() if "k1" in phases else []
     k2 = phase_k2() if "k2" in phases else []
     head = phase_head() if "head" in phases else []
+    shapes = _ShapeLog()  # from here on, the main paths
+    shapes.install()
+    shapes.tag = "model"
     model = phase_model() if "model" in phases else None
-    serve = prefix = None
+    serve = prefix = guided = stream = spec = serve_fingerprint = None
+    serving = {"serve", "prefix", "guided", "stream", "spec"} & set(phases)
+    margin = (model["tolerance"] if model else phase_model()["tolerance"]) if serving else None
     if "serve" in phases or "prefix" in phases:
-        margin = model["tolerance"] if model else phase_model()["tolerance"]
+        shapes.tag = "serve"
         serve, weights = phase_serve(margin=margin)
         if "prefix" in phases:
+            shapes.tag = "prefix"
             prefix = phase_prefix(*weights, margin=margin)
+        serve_fingerprint = _fingerprint(weights[1])
+        del weights
+        gc.collect()
+        torch.cuda.empty_cache()
+    if {"guided", "stream", "spec"} & set(phases):
+        server = _guided_server()
+        try:
+            shapes.tag = "guided"
+            guided = (phase_guided(server, margin, serve_fingerprint=serve_fingerprint)
+                      if "guided" in phases else None)
+            shapes.tag = "stream"
+            stream = phase_stream(server) if "stream" in phases else None
+        finally:
+            asyncio.run(server.shutdown())
+        weights = (server._cfg, server._engine.params)
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+        shapes.tag = "spec"
+        spec = phase_spec(*weights, margin=margin) if "spec" in phases else None
         del weights
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": "free", "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    shapes.tag = "train"
     train = [phase_train(*run) for run in TRAIN_RUNS] if "train" in phases else []
+    shapes.tag = "remat"
     remat = phase_remat() if "remat" in phases else None
+    shapes.tag = "fused"
     fused = phase_fused() if "fused" in phases else None
+    shapes.tag = "ckpt"
     ckpt = phase_ckpt() if "ckpt" in phases else None
-    records = [r for r in (*k1, *k2, *head, model, serve, prefix, *train, remat, fused, ckpt)
+    shapes.uninstall()
+    shape_rec, _ = phase_shapes(shapes, k1, k2)
+    records = [r for r in (*k1, *k2, *head, model, serve, prefix, guided, stream, spec, *train,
+                           remat, fused, ckpt, shape_rec)
                if r is not None]
     failed = [r.get("phase") for r in records if not r["ok"]]
     if build is not None and build["spill_bytes"]:
@@ -1727,6 +2336,9 @@ def main(argv=None) -> int:
     k2_rec = k2[K2_CASES.index(K2_MAIN_SHAPE)]
     by_path = {"model_llama3-8b": model["launches"], "serve_llama3-8b": serve["launches"]}
     by_path.update({f"prefix_{p}_llama3-8b": c for p, c in prefix["launches"].items()})
+    by_path["guided_llama3-8b"] = guided["launches"]
+    by_path["stream_llama3-8b"] = stream["launches"]
+    by_path.update({f"spec_{p}_llama3-8b": c for p, c in spec["launches"].items()})
     by_path.update({f"train_{r['model']}": r["launches"] for r in train})
     by_path.update({f"remat_{p}_llama3-1b": c for p, c in remat["launches"].items()})
     by_path["fused_llama3-1b"] = fused["launches"]

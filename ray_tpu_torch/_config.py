@@ -46,6 +46,23 @@ class Config:
     # allowed SLO breach fraction: burn rate = windowed breach fraction /
     # this budget, so burn > 1 means the error budget is being exhausted
     llm_slo_error_budget: float = 0.01
+    # trailing n-gram length the ngram speculative draft matches against the
+    # slot history and the cross-request continuation store
+    llm_spec_ngram: int = 3
+    # bounded LRU entries in the ngram draft's cross-request continuation
+    # store (0 disables the shared store, leaving prompt lookup only)
+    llm_spec_store_entries: int = 4096
+    # DFA state cap for guided-decoding constraint compilation: a spec whose
+    # subset construction exceeds it raises at compile time
+    llm_guided_max_states: int = 4096
+    # bounded-recursion inlining rounds for grammar constraints: a <rule>
+    # reference surviving this many rounds is unbounded recursion and fails
+    llm_guided_max_depth: int = 8
+    # compiled-constraint LRU entries per server/tokenizer
+    llm_guided_cache_entries: int = 32
+    # undelivered buffered tokens a TokenStream holds before cancelling its
+    # own request (0 disables the guard)
+    llm_stream_buffer_tokens: int = 4096
 
 
 CONFIG = Config()

@@ -1,10 +1,11 @@
 """ray_tpu_torch.llm: LLM serving on one GPU, in process.
 
 Twin of `ray_tpu/llm/__init__.py` for this slice: `LLMConfig`, `load_model`
-and `LLMServer` (generate with its flight-recorder `timing` breakdown,
-recorder_stats, shutdown) over the port's `DecodeEngine`.
-The Serve deployment, the OpenAI router, the DP/PD routers and streaming are
-later slices (ROADMAP.md).
+and `LLMServer` (generate, with guided decoding and its flight-recorder
+`timing` breakdown; generate_stream; recorder_stats; shutdown) over the
+port's `DecodeEngine`, speculative decoding through `LLMConfig.spec_config`.
+The Serve deployment, the OpenAI router and the DP/PD routers are later
+slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from ray_tpu_torch.llm._engine import (
     SamplingParams,
     sharded_params,
 )
+from ray_tpu_torch.llm.generate import ConstraintCompiler
 
 __all__ = [
     "ByteTokenizer",
@@ -49,6 +51,14 @@ class ByteTokenizer:
     def decode(self, ids: List[int]) -> str:
         return bytes(i for i in ids if 0 <= i < 256).decode("utf-8", errors="replace")
 
+    def token_bytes(self, token_id: int) -> Optional[bytes]:
+        """Exact byte rendering of one token (the guided-decoding byte-DFA
+        keys its token masks on this). None marks an unrenderable id, which
+        the mask then permanently disallows."""
+        if 0 <= token_id < 256:
+            return bytes([token_id])
+        return None
+
 
 @dataclasses.dataclass
 class LLMConfig:
@@ -66,6 +76,11 @@ class LLMConfig:
     max_seq: Optional[int] = None
     tokenizer: Optional[Any] = None  # anything with encode/decode; None -> bytes
     seed: int = 0
+    # Speculative decoding: e.g. {"method": "ngram", "num_spec_tokens": 8}
+    # for the zero-FLOP retrieval draft, or {"draft_layers": j} /
+    # {"draft_cfg": ..., "draft_params": ...} for a draft model; {} with
+    # only num_spec_tokens is the self-draft. None disables.
+    spec_config: Optional[dict] = None
     tenant_weights: Optional[dict] = None
     wfq: bool = True
     tenant_quota: Optional[int] = None
@@ -120,9 +135,14 @@ class LLMServer:
                 "pass an object with encode/decode"
             )
         self._tokenizer = config.tokenizer or ByteTokenizer()
+        # Guided decoding: specs compile once per distinct schema/regex
+        # against this replica's tokenizer and model vocab; every request
+        # with the same spec reuses the DFA and its mask rows.
+        self._constraints = ConstraintCompiler(self._tokenizer, cfg.vocab_size)
         self._engine = DecodeEngine(
             cfg, params, num_slots=config.num_slots,
             max_seq=config.max_seq or min(cfg.max_seq, 2048), seed=config.seed,
+            spec_config=config.spec_config,
             wfq=config.wfq, tenant_weights=config.tenant_weights,
             tenant_quota=config.tenant_quota, device=config.device,
         )
@@ -130,9 +150,12 @@ class LLMServer:
     async def generate(self, prompt: Union[str, List[int]], *,
                        max_tokens: int = 64, temperature: float = 0.0,
                        top_k: int = 0, stop_token_id: Optional[int] = None,
-                       tenant: Optional[str] = None) -> Dict[str, Any]:
+                       tenant: Optional[str] = None, guided=None) -> Dict[str, Any]:
+        """guided: a regex string, or {"regex": ...}, {"json_schema": ...},
+        {"grammar": rules, "root": name} — the output is held to it."""
         t0 = time.monotonic()
         rid = uuid.uuid4().hex  # keys the engine's flight-recorder record
+        constraint = self._constraints.get(guided) if guided is not None else None
         token_ids = (
             self._tokenizer.encode(prompt) if isinstance(prompt, str) else list(prompt)
         )
@@ -154,7 +177,7 @@ class LLMServer:
             token_ids,
             SamplingParams(max_tokens=max_tokens, temperature=temperature,
                            top_k=top_k, stop_token_id=stop_token_id),
-            cb, tenant=tenant, request_id=rid,
+            cb, tenant=tenant, request_id=rid, constraint=constraint,
         )
         await done
         gen = list(out)
@@ -174,6 +197,64 @@ class LLMServer:
             # TTFT/TPOT.
             "timing": self._engine.request_timing(rid),
         }
+
+    async def generate_stream(self, prompt: Union[str, List[int]], *,
+                              max_tokens: int = 64, temperature: float = 0.0,
+                              top_k: int = 0, stop_token_id: Optional[int] = None,
+                              tenant: Optional[str] = None,
+                              request_id: Optional[str] = None, guided=None):
+        """Async generator: yields text increments as tokens are decoded.
+
+        Closing the generator mid-stream (client disconnect) cancels the
+        engine request: GeneratorExit lands on the `await`, the finally
+        closes the TokenStream, and close() retires the slot and releases
+        the lease and constraint state within one scheduler iteration."""
+        token_ids = (
+            self._tokenizer.encode(prompt) if isinstance(prompt, str) else list(prompt)
+        )
+        constraint = self._constraints.get(guided) if guided is not None else None
+        loop = asyncio.get_running_loop()
+        queue: asyncio.Queue = asyncio.Queue()
+
+        def cb(token: int, finished: bool):
+            loop.call_soon_threadsafe(queue.put_nowait, (token, finished))
+
+        stream = self._engine.open_stream(
+            token_ids,
+            SamplingParams(max_tokens=max_tokens, temperature=temperature,
+                           top_k=top_k, stop_token_id=stop_token_id),
+            tenant=tenant, request_id=request_id, on_token=cb, constraint=constraint,
+        )
+        # Incremental detokenization with a short prefix window: deltas come
+        # from decode(prefix + pending) minus decode(prefix), so tokenizers
+        # whose rendering depends on context stay correct across yield
+        # boundaries without the O(N^2) full-prefix decode. Held back while
+        # ending mid-codepoint so multi-byte characters emit whole.
+        PREFIX = 8
+        emitted: List[int] = []
+        sent = 0  # tokens already covered by yielded text
+        try:
+            while True:
+                token, finished = await queue.get()
+                if token >= 0 and not (
+                    finished and stop_token_id is not None and token == stop_token_id
+                ):
+                    emitted.append(token)
+                prefix = emitted[max(0, sent - PREFIX):sent]
+                cur = self._tokenizer.decode(prefix + emitted[sent:])
+                base = self._tokenizer.decode(prefix) if prefix else ""
+                delta = cur[len(base):]
+                if delta.endswith("\ufffd") and not finished:
+                    pass  # mid-codepoint: hold until the remaining bytes arrive
+                elif delta:
+                    yield delta
+                    sent = len(emitted)
+                if finished:
+                    return
+        finally:
+            # No-op after a clean finish; on disconnect or error this is the
+            # cancel path that frees the slot and the constraint state.
+            stream.close()
 
     async def recorder_stats(self) -> dict:
         """Flight-recorder counters for this replica's engine, with each

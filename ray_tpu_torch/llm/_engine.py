@@ -21,9 +21,17 @@ rows [0, cached_offset) — JAX pads them to a bucket because it compiles one
 attach program per bucket — and prefills the suffix from that offset through
 the masked route.
 
-Not in this slice (each raises): LoRA adapters, speculative decoding, tensor
-parallelism, guided decoding, PD transfer, streams, the cache's device and
-disk tiers.
+Guided decoding (`submit(constraint=...)`, `llm/generate/`) adds a
+constraint's host mask to the admission sample and to each host sampling
+row; speculative decoding (`spec_config`, `llm/scheduler/spec.py`) runs a
+verify phase between the chunks and the decode phase: one batched gated
+forward over every participating slot's [t0, d1..dk], with the guided
+slots' per-position masks added before the on-device argmax. A model
+draft's prefill is an offset-0 forward, so it runs K1 too. `open_stream`
+hands back a cancellable `TokenStream`.
+
+Not in this slice (each raises): LoRA adapters, tensor parallelism. Not
+ported yet: PD transfer, the cache's device and disk tiers.
 """
 
 from __future__ import annotations
@@ -218,8 +226,6 @@ class DecodeEngine:
                  tp=1, device=None):
         if lora_config:
             raise _not_in_slice("lora_config (multi-LoRA serving)", "Queue 1, item 7")
-        if spec_config:
-            raise _not_in_slice("spec_config (speculative decoding)", "Queue 1, item 7")
         if tp != 1:
             raise _not_in_slice("tp > 1 (tensor-parallel serving)", "Queue 1, item 7")
         if cfg.fused_qkv or "qkv" in params.get("layer_0", {}).get("attn", {}):
@@ -309,6 +315,18 @@ class DecodeEngine:
         # and of the most recent cache attach.
         self.last_prefill: Optional[dict] = None
         self.last_attach: Optional[dict] = None
+        # Speculative decoding as a scheduler-scheduled phase: a
+        # DraftProvider proposes up to k tokens per eligible slot, and ONE
+        # batched gated verify forward scores every participating slot.
+        # Greedy output is token-identical to plain decode by construction;
+        # acceptance only affects speed.
+        self._draft = None
+        self._spec_counters = {
+            "rounds": 0, "proposed_tokens": 0, "accepted_tokens": 0,
+            "emitted_tokens": 0,
+        }
+        if spec_config:
+            self._draft = self._build_draft(dict(spec_config))
         # The stepper launches on the stream that was current here.
         self._stream = (torch.cuda.current_stream(self.device)
                         if self.device.type == "cuda" else None)
@@ -316,6 +334,39 @@ class DecodeEngine:
         if decode_loop:
             self._thread = threading.Thread(target=self._loop, daemon=True)
             self._thread.start()
+
+    def _build_draft(self, spec_config: dict):
+        """spec_config -> DraftProvider. method="ngram" builds the zero-FLOP
+        retrieval draft; otherwise a draft MODEL: `draft_layers=j` shares
+        the target's first j layers + embeddings (EAGLE-style early exit),
+        `draft_cfg`/`draft_params` plug an external model (its params moved
+        to the engine's device), and the default (no keys) is the
+        self-draft used as an all-accept test rig."""
+        from ray_tpu_torch.llm.scheduler.spec import (
+            ModelDraft,
+            NGramDraft,
+            early_exit_draft,
+        )
+
+        k = max(1, int(spec_config.get("num_spec_tokens", 6)))
+        if spec_config.get("method") == "ngram":
+            return NGramDraft(
+                k=k,
+                n=int(spec_config.get("ngram", CONFIG.llm_spec_ngram)),
+                store_entries=int(spec_config.get(
+                    "store_entries", CONFIG.llm_spec_store_entries)),
+            )
+        if spec_config.get("draft_layers"):
+            d_cfg, d_params = early_exit_draft(
+                self.cfg, self.params, int(spec_config["draft_layers"])
+            )
+        else:
+            d_cfg = spec_config.get("draft_cfg") or self.cfg
+            d_params = self.params
+            if "draft_params" in spec_config:
+                d_params = _tree_to(spec_config["draft_params"], self.device)
+        return ModelDraft(d_cfg, d_params, k=k, num_slots=self.B, max_seq=self.T,
+                          bucket=self._bucket, device=self.device)
 
     # -- warm start --------------------------------------------------------
     @classmethod
@@ -373,6 +424,37 @@ class DecodeEngine:
                                  self._caches, lens, kv_mask, write_gate=gate)
         return logits[:, 0], lens + 1
 
+    def _spec_verify_batched(self, tokens: torch.Tensor, lens: torch.Tensor,
+                             gate: torch.Tensor,
+                             constraint_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """Target forward over [t0, d1..dk] for EVERY slot in one dispatch:
+        tokens [B, k+1] at positions lens..lens+k, through the masked route.
+        Non-participating slots (gate False) flow through the forward for
+        batching but leave their KV rows untouched — the canonical row for a
+        plainly-decoding slot is written by the decode dispatch that follows
+        the verify phase.
+
+        constraint_mask [B, k+1, V] is the guided-decoding composition
+        point: an additive logits mask, zeros for unguided slots, folded in
+        before the argmax. A disallowed draft token's row pins its logit to
+        -1e30, the masked argmax disagrees with the proposal, and the
+        acceptance rule rejects there with the masked argmax as the
+        correction — what masked plain decode would emit. JAX passes the
+        mask always (one compiled program); the eager port passes None in a
+        round without a guided participant and adds nothing.
+
+        Returns the on-device argmax [B, k+1] (the host needs k+1 ints per
+        slot, not logits)."""
+        S = tokens.shape[1]
+        positions = lens[:, None] + torch.arange(S, device=self.device)[None, :]
+        kv_mask = (torch.arange(self.T, device=self.device)[None, None, :]
+                   <= positions[:, :, None])
+        logits = _forward_cached(self.params, self.cfg, tokens, positions, self._caches,
+                                 lens, kv_mask, write_gate=gate)
+        if constraint_mask is not None:
+            logits = logits + constraint_mask
+        return torch.argmax(logits, dim=-1)
+
     def _decode_multi(self, last_token: torch.Tensor, lens: torch.Tensor,
                       gate: torch.Tensor, n: int) -> torch.Tensor:
         """n greedy tokens for every slot with on-device argmax; the caller
@@ -392,14 +474,18 @@ class DecodeEngine:
 
         tenant keys the weighted-fair admission queue; request_id keys the
         flight-recorder record (`request_timing()`) and is the cancel()
-        handle. Raises ValueError when the prompt cannot fit the
-        engine's sequence budget (it is never silently truncated),
-        EngineOverloadedError when the tenant's quota or the global depth cap
-        is hit, and RuntimeError when the stepper is dead."""
+        handle. constraint is a compiled guided-decoding constraint
+        (`llm.generate.compile_constraint`: callers own the tokenizer, the
+        engine owns the per-request state): its token masks fold into this
+        request's host sampling rows and spec-verify argmax, and its state
+        releases on finish, cancel, shutdown and stepper death. Raises
+        ValueError when the prompt cannot fit the engine's sequence budget
+        (it is never silently truncated) or the constraint was compiled for
+        another logits width, EngineOverloadedError when the tenant's quota
+        or the global depth cap is hit, and RuntimeError when the stepper is
+        dead."""
         if lora:
             raise _not_in_slice("LoRA adapters", "Queue 1, item 7")
-        if constraint is not None:
-            raise _not_in_slice("guided decoding", "Queue 1, item 4")
         self._check_alive()
         token_ids = list(token_ids) or [0]  # empty prompt decodes from token 0
         if len(token_ids) > self.T - 1:
@@ -414,18 +500,66 @@ class DecodeEngine:
         headroom = self.T - 1 - len(token_ids)
         if sampling.max_tokens > headroom:
             sampling = dataclasses.replace(sampling, max_tokens=max(1, headroom))
+        self._check_constraint(constraint)
         tenant = "" if tenant is None else tenant
         req = Request("prompt", prompt=token_ids, sampling=sampling, callback=callback,
                       tenant=tenant)
         req.rid = request_id
         req.rec = self._start_record(request_id, tenant, prompt_len=len(token_ids))
+        if constraint is not None:
+            req.constraint = constraint.begin(request_id or f"req-{id(req):x}")
         try:
             self._sched.submit(req)
         except EngineOverloadedError:
+            if req.constraint is not None:
+                req.constraint.release()
+                req.constraint = None
             summary = self._recorder.finish(req.rec, status="rejected")
             if summary is not None:
                 self._serve_metrics.record(summary)
             raise
+
+    def _check_constraint(self, constraint):
+        """A constraint compiled against a different logits width would
+        mis-mask silently; fail the submit loudly instead."""
+        if constraint is None:
+            return
+        vocab = getattr(constraint, "vocab", None)
+        if vocab is not None and int(vocab) != int(self.cfg.vocab_size):
+            raise ValueError(
+                f"guided constraint compiled for vocab {vocab} but this "
+                f"engine's model has vocab_size={self.cfg.vocab_size}; "
+                f"compile_constraint(spec, tokenizer, vocab_size) must use "
+                f"the model's logits width"
+            )
+
+    def open_stream(self, token_ids: List[int], sampling: SamplingParams, *,
+                    tenant: Optional[str] = None, request_id: Optional[str] = None,
+                    on_token=None, constraint=None, buffer_cap: Optional[int] = None):
+        """Submit a request and return its `TokenStream` subscription
+        instead of wiring a raw callback: per-token delivery through
+        iteration/`get()` (buffered) or the `on_token` relay (the shape
+        `LLMServer.generate_stream` uses). The stream's `close()`/`cancel()`
+        is the mid-stream-disconnect path: it cancels the request, and the
+        engine frees the slot, prefix lease and constraint state within one
+        scheduler iteration. Every open_stream resolves through close()
+        (iterating to exhaustion closes it)."""
+        import uuid
+
+        from ray_tpu_torch.llm.generate import TokenStream
+
+        rid = request_id or f"stream-{uuid.uuid4().hex}"
+        stream = TokenStream(self, rid, on_token=on_token, buffer_cap=buffer_cap)
+        try:
+            self.submit(token_ids, sampling, stream._push, tenant=tenant,
+                        request_id=rid, constraint=constraint)
+        except BaseException:
+            # The submit never enqueued: close the subscription without the
+            # cancel round-trip (there is no request to cancel).
+            stream._finished.set()
+            stream.close()
+            raise
+        return stream
 
     def _start_record(self, request_id: Optional[str], tenant: str, **mark_attrs):
         """Open a flight-recorder record for one admission (no trace
@@ -517,11 +651,19 @@ class DecodeEngine:
 
     def scheduler_stats(self) -> dict:
         """Iteration-level scheduler occupancy (per-phase token counters,
-        interleaving, queue depths), the prefix cache's counters and
+        interleaving, queue depths), speculative-decoding acceptance
+        ("spec", with a draft), the prefix cache's counters and
         `recorder_stats()`."""
         out = self._sched.stats()
         if self._prefix_cache is not None:
             out["prefix_cache"] = self._prefix_cache.stats()
+        if self._draft is not None:
+            spec = dict(self._spec_counters)
+            spec["accept_rate"] = (
+                spec["accepted_tokens"] / max(1, spec["proposed_tokens"])
+            )
+            spec["draft"] = self._draft.stats()
+            out["spec"] = spec
         out["recorder"] = self.recorder_stats()
         return out
 
@@ -558,9 +700,13 @@ class DecodeEngine:
         }
 
     def _fail_cancelled_request(self, req: Request):
-        """Retire a cancelled not-yet-active request: its flight record
-        retires as "cancelled" and the callback observes the terminal
-        sentinel exactly once (the scheduler released its lease)."""
+        """Retire a cancelled not-yet-active request: its constraint state
+        releases, its flight record retires as "cancelled" and the callback
+        observes the terminal sentinel exactly once (the scheduler released
+        its lease)."""
+        if req.constraint is not None:
+            req.constraint.release()
+            req.constraint = None
         rec, req.rec = req.rec, None
         summary = self._recorder.finish(rec, status="cancelled")
         if summary is not None:
@@ -584,10 +730,13 @@ class DecodeEngine:
         if req is not None:
             self._fail_cancelled_request(req)
             return
-        for s in self._sched.slots:
+        for i, s in enumerate(self._sched.slots):
             if s.active and s.rid == rid:
                 s.active = False
+                self._release_slot_constraint(s)
                 self._finish_record(s, status="cancelled")
+                if self._draft is not None:
+                    self._draft.on_finish(i, s)
                 if s.callback is not None:
                     try:
                         s.callback(-1, True)
@@ -605,10 +754,12 @@ class DecodeEngine:
 
     def _fail_all(self):
         """Fail every active and queued request (callback(-1, True)) so
-        submitters unwind instead of hanging; queued requests' prefix leases
-        release in the scheduler's drain, and every live flight record
-        retires as "dropped"."""
+        submitters unwind instead of hanging; every slot's constraint state
+        releases here, queued requests' prefix leases and constraint states
+        in the scheduler's drain, and every live flight record retires as
+        "dropped"."""
         for slot in self._sched.slots:
+            self._release_slot_constraint(slot)
             if slot.active and slot.callback is not None:
                 slot.active = False
                 try:
@@ -700,9 +851,18 @@ class DecodeEngine:
             "prompt_len": req.prompt_len, "chunks": req.chunks,
         }
         first_row = last_logits.cpu().numpy()
+        if req.constraint is not None:
+            first_row = first_row + req.constraint.mask(
+                req.sampling.stop_token_id, budget=req.sampling.max_tokens
+            )
         first = _sample_host(first_row, req.sampling, self._np_rng)
         if self._prefix_cache is not None:
             self._insert_prompt_kv(slot, req.prompt, req.adapter, req.cached_offset)
+        if self._draft is not None:
+            # Draft catch-up: cache-hit admissions (offset > 0) stay
+            # spec-eligible — the model draft prefills its own cache on the
+            # whole prompt; the ngram draft only indexes the ids.
+            self._draft.on_admit(slot, list(req.prompt))
         self._start_slot(req, first)
 
     def _start_slot(self, req: Request, first: int):
@@ -731,6 +891,14 @@ class DecodeEngine:
             s.generated >= s.params.max_tokens
             or (s.params.stop_token_id is not None and token == s.params.stop_token_id)
         )
+        if s.constraint is not None and not (
+                s.params.stop_token_id is not None and token == s.params.stop_token_id):
+            # The stop token ends output; it never enters the DFA.
+            s.constraint.advance(token)
+            if s.constraint.is_complete():
+                # Accepting dead-end: nothing can legally extend the output,
+                # so finish now instead of burning max_tokens.
+                done = True
         self._sched.note_emitted(slot)
         if s.rec is not None:
             s.rec.token()  # host timestamp; TTFT/TPOT derive from these
@@ -746,6 +914,17 @@ class DecodeEngine:
             self._finish_record(s)  # callback-abort path: books still balance
         if done:
             s.active = False
+            self._release_slot_constraint(s)
+            if self._draft is not None:
+                self._draft.on_finish(slot, s)
+
+    @staticmethod
+    def _release_slot_constraint(s):
+        """Release a slot's guided constraint state exactly once; the
+        finish, cancel, shutdown and stepper-death paths all funnel here."""
+        state, s.constraint = s.constraint, None
+        if state is not None:
+            state.release()
 
     def _device_context(self) -> contextlib.ExitStack:
         stack = contextlib.ExitStack()
@@ -765,21 +944,101 @@ class DecodeEngine:
             raise
 
     def _loop_inner(self):
-        """Execute one scheduler plan per iteration: prefill chunks, then the
-        batched decode phase."""
+        """Execute one scheduler plan per iteration: prefill chunks, then
+        the speculative verify phase, then the batched decode phase (the
+        order is load-bearing: plainly-decoding slots' canonical rows land
+        last). The draft proposes inside next_plan."""
         while not self._stop:
+            # Cancels retire first, so a cancelled slot never joins another
+            # dispatch: cancel-to-free is bounded by one iteration.
             self._process_cancels()
-            plan = self._sched.next_plan()
+            plan = self._sched.next_plan(draft=self._draft)
             if plan.idle:
                 time.sleep(0.002)
                 continue
             for chunk in plan.chunks:
                 self._exec_chunk(chunk)
+            if plan.spec_slots:
+                self._spec_round(plan)
             if plan.decode_slots:
                 if plan.multi_step > 1:
                     self._multi_round(plan.decode_slots, plan.multi_step)
                 else:
                     self._decode_round(plan.decode_slots)
+                if self._draft is not None:
+                    for i in plan.decode_slots:
+                        # A plain step advances the target but not a model
+                        # draft's cache; the ngram draft ignores it.
+                        self._draft.on_plain_decode(i)
+
+    def _spec_round(self, plan):
+        """One scheduler-scheduled speculative phase: the draft's proposals
+        (gathered at plan time) verify for every participating slot in ONE
+        batched dispatch, and each slot emits its longest accepted prefix
+        plus the target's correction token — exactly the greedy chain."""
+        draft = self._draft
+        S = draft.k + 1
+        tokens = np.zeros((self.B, S), np.int64)
+        gate = np.zeros((self.B,), bool)
+        base_lens: Dict[int, int] = {}
+        # Guided composition: per-position masks for guided participants,
+        # built host-side by walking a clone of each slot's automaton
+        # through its known proposal (the real state advances only in
+        # _emit); zeros for the others.
+        cmask = None
+        for i in plan.spec_slots:
+            s = self._sched.slots[i]
+            p = plan.proposals[i]
+            tokens[i, 0] = s.tokens[-1]
+            tokens[i, 1:1 + len(p)] = p
+            gate[i] = True
+            base_lens[i] = s.host_len
+            if s.constraint is not None:
+                if cmask is None:
+                    cmask = np.zeros((self.B, S, self.cfg.vocab_size), np.float32)
+                rows = s.constraint.proposal_masks(
+                    [int(x) for x in p], s.params.stop_token_id, length=S,
+                    budget=s.params.max_tokens - s.generated,
+                )
+                cmask[i, :len(rows)] = rows
+        t_verify = time.time()
+        greedy_dev = self._spec_verify_batched(
+            self._dev(tokens), self._dev(self._lens), self._dev(gate),
+            None if cmask is None else self._dev(cmask))
+        # The round's one acceptance sync: k+1 tokens per participating slot
+        # in a single batched pull.
+        greedy = greedy_dev.cpu().numpy()
+        c = self._spec_counters
+        c["rounds"] += 1
+        for i in plan.spec_slots:
+            s = self._sched.slots[i]
+            p = plan.proposals[i]
+            base = base_lens[i]
+            m = 0
+            while m < len(p) and int(greedy[i, m]) == int(p[m]):
+                m += 1
+            emitted = [int(x) for x in p[:m]] + [int(greedy[i, m])]
+            # Rows [base, base+m] now hold [t0, accepted...]; rows beyond
+            # hold rejected proposals' kv, invisible behind lens and
+            # overwritten write-before-read by the next dispatch.
+            s.host_len = base + m + 1
+            draft.on_accept(i, s, base, p, m)
+            c["proposed_tokens"] += len(p)
+            c["accepted_tokens"] += m
+            if s.rec is not None:
+                s.rec.span("spec-verify", t_verify, time.time(),
+                           proposed=len(p), accepted=m)
+            for token in emitted:
+                if not s.active:
+                    break
+                s.generated += 1
+                s.tokens.append(token)
+                s.history.append(token)
+                self._emit(i, token)
+            self._lens[i] = s.host_len
+            if s.tokens:
+                self._last_token[i] = s.tokens[-1]
+            c["emitted_tokens"] += len(emitted)
 
     def _decode_round(self, decode_slots: List[int]):
         # The write gate restricts KV writes to exactly the slots whose lens
@@ -795,7 +1054,17 @@ class DecodeEngine:
             self._lens[i] += 1  # the decode step wrote this slot's kv row
             if not s.active:
                 continue
-            token = _sample_host(logits_np[i], s.params, self._np_rng)
+            row = logits_np[i]
+            if s.constraint is not None:
+                # One cached [V] mask row + one numpy add on the pulled
+                # logits. When the unconstrained argmax is already legal the
+                # mask cannot change it. budget= steers onto a completable
+                # path once the remaining max_tokens gets tight.
+                row = row + s.constraint.mask(
+                    s.params.stop_token_id,
+                    budget=s.params.max_tokens - s.generated,
+                )
+            token = _sample_host(row, s.params, self._np_rng)
             s.generated += 1
             s.host_len += 1
             s.tokens.append(token)

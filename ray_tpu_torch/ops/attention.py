@@ -36,10 +36,11 @@ _NEG_INF = -1e30
 # Launch counts of the port's kernels: each wrapper adds one where it
 # launches its kernel and nowhere else.
 LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0}
-# Runs of the custom ops `flash_fwd` and `flash_bwd` on any device: what
-# LAUNCHES counts on the GPU, and what the CPU tests count (they run the
-# plain versions). A selective-checkpoint replay of saved outputs does not
-# run the op and counts nothing in either.
+# Runs of the wrappers `flash_forward` and `flash_backward` on any device
+# (the custom ops `flash_fwd` and `flash_bwd` call them): what LAUNCHES
+# counts on the GPU, and what the CPU tests count (they run the plain
+# versions). A selective-checkpoint replay of saved outputs does not run the
+# op and counts nothing in either.
 CALLS = {"flash_fwd": 0, "flash_bwd": 0}
 
 
@@ -240,6 +241,7 @@ def flash_forward(q, k, v, *, causal: bool, scale: float,
     head h // (H // Hkv) either way. Layouts are taken through strides; no
     transpose is copied. CUDA tensors launch the kernel (bf16, head_dim 64 or
     128) or raise; CPU tensors take `flash_forward_reference`."""
+    CALLS["flash_fwd"] += 1
     if not _use_kernel(q):
         return flash_forward_reference(q, k, v, causal=causal, scale=scale, layout=layout)
     return _flash_forward_cuda(q, k, v, causal=causal, scale=scale, layout=layout)
@@ -345,6 +347,7 @@ def flash_backward(q, k, v, out, lse, g, *, causal: bool, scale: float,
     dtype and layout, dk/dv already summed over each kv head's query heads.
     CUDA tensors launch the kernel (bf16, head_dim 64 or 128) or raise; CPU
     tensors take `flash_backward_reference`."""
+    CALLS["flash_bwd"] += 1
     if not _use_kernel(q):
         return flash_backward_reference(q, k, v, out, lse, g, causal=causal, scale=scale,
                                         layout=layout)
@@ -358,7 +361,6 @@ def flash_backward(q, k, v, out, lse, g, *, causal: bool, scale: float,
 def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                   scale: float, layout: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """`flash_forward` as a dispatched op: (out, lse)."""
-    CALLS["flash_fwd"] += 1
     return flash_forward(q, k, v, causal=causal, scale=scale, layout=layout)
 
 
@@ -373,7 +375,6 @@ def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
                   lse: torch.Tensor, g: torch.Tensor, causal: bool, scale: float,
                   layout: str) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """`flash_backward` as a dispatched op: (dq, dk, dv)."""
-    CALLS["flash_bwd"] += 1
     return flash_backward(q, k, v, out, lse, g, causal=causal, scale=scale, layout=layout)
 
 

@@ -164,14 +164,7 @@ def test_llm_server_generate(weights, tmp_path):
 
 
 @pytest.mark.parametrize("kw", [{"lora_config": {"max_loras": 2}},
-                                {"spec_config": {"method": "ngram"}},
                                 pytest.param({"tp": 2}, id="kw3")])
 def test_later_slice_features_raise(weights, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port_engine(weights[2], decode_loop=False, **kw)
-
-
-def test_guided_constraint_raises(weights):
-    teng = _port_engine(weights[2], decode_loop=False)
-    with pytest.raises(NotImplementedError, match="guided"):
-        teng.submit([1, 2], SamplingParams(), lambda t, f: None, constraint=object())

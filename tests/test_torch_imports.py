@@ -38,3 +38,16 @@ def test_no_jax_package_import(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = [(line, pkg) for line, pkg in _imported(tree) if pkg in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_guard_covers_the_copied_modules():
+    """The modules copied from framework-neutral JAX-package modules (a copy
+    could bring an import of its original back) are among the guard's ids."""
+    mark = next(m for m in test_no_jax_package_import.pytestmark if m.name == "parametrize")
+    ids = {mark.kwargs["ids"](p) for p in mark.args[1]}
+    copies = {"ray_tpu_torch/llm/generate/__init__.py", "ray_tpu_torch/llm/generate/_constraint.py",
+              "ray_tpu_torch/llm/generate/_fsm.py", "ray_tpu_torch/llm/generate/_grammar.py",
+              "ray_tpu_torch/llm/generate/_schema.py", "ray_tpu_torch/llm/generate/_stream.py",
+              "ray_tpu_torch/llm/scheduler/scheduler.py", "ray_tpu_torch/llm/scheduler/spec.py",
+              "ray_tpu_torch/llm/kvcache/manager.py", "ray_tpu_torch/llm/flight_recorder.py"}
+    assert copies <= ids, sorted(copies - ids)
