@@ -12,7 +12,8 @@ Phases, each printing one JSON record per line:
   k1       the flash-attention forward kernel held against its plain PyTorch
            version on the card, per shape, with times (CUDA events, median of
            >= 20 after warmup) beside SDPA as a yardstick (kernel_over_library)
-           and the card's bound, and the host time of one call beside SDPA's
+           and the card's bound, and the host time of one call beside SDPA's;
+           rerun 20 times on the same inputs, equal bit for bit
   k2       the flash-attention backward kernel held against its plain PyTorch
            version the same way, beside SDPA's backward, with each of its CUDA
            kernels' device time (torch.profiler), and run twice on the same
@@ -54,6 +55,15 @@ Phases, each printing one JSON record per line:
            layer per admission plus once per draft layer (the draft's
            whole-prompt prefill); TTFT, TPOT, tokens/s, acceptance, tokens
            per verify round, verify and propose ms
+  lora     multi-LoRA serving on the serve prompts and weights: three rank-16
+           adapters on q and v of every layer through 2 device slots, a
+           batch of base, a0, a1, a2 and the same 4 reversed (one adapter
+           request waits for a pin); base tokens and logits bit for bit an
+           engine without lora_config's, adapter tokens through the
+           teacher-forced check against merged weights, the paged tokens
+           equal to an engine that never pages, K1 once per layer per
+           admission, no pin left; page-in ms, cold- against warm-adapter
+           TTFT, the delta's TPOT cost and kernels per decode step
   train    init_state/build_train_step on llama3-1b (full width and depth,
            [4, 2048], remat, fused cross-entropy) and on gpt2-125m ([8, 1024],
            no remat, plain cross-entropy): step-1 gradients of the flash route
@@ -80,7 +90,8 @@ launch counts, both kernels', are set to 0 just before each main path (the
 model's forward, the served requests, each configuration's and each remat
 policy's train steps, the prefix phase's cold request, its hits and its
 uncached requests, the guided batch, the stream phase's requests, each
-spec-phase run) and read just after; the kernels line's
+spec-phase run, each lora-phase batch and its cold/warm requests) and read
+just after; the kernels line's
 `launches` are K1's on the served requests and K2's on llama3-1b's steps,
 with every path's counts beside them.
 
@@ -93,6 +104,7 @@ itself is nvcc (and nvidia-smi), both waited for; the threads it starts
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import gc
 import json
 import math
@@ -165,8 +177,9 @@ K2_MAIN_SHAPE = K2_CASES[0]
 # stream phase's 16-token prompt at 16; 512 is the model phase's sequence
 # (bhsd) and a model draft's whole-prompt prefill of the 300-token serve
 # prompt (bshd; the draft prefills 32, 128, 256 and 512); 2048 is the served
-# max_seq. The ckpt phase serves gpt2-125m (12 heads, D 64) prompts of 24 and
-# 57 tokens. Every shape a main path launches K1 or K2 at is logged
+# max_seq. The lora phase's first chunks are the serve phase's (32 and 128,
+# and 256 for a long prompt admitted while nothing decodes). The ckpt phase
+# serves gpt2-125m (12 heads, D 64) prompts of 24 and 57 tokens. Every shape a main path launches K1 or K2 at is logged
 # (`_ShapeLog`); one missing here is checked after the main paths
 # (`phase_shapes`) and reported as unlisted.
 K1_CASES = [
@@ -193,11 +206,12 @@ K1_TRAIN_CASES = [(4, 2048, 32, 8, 64, True, "bhsd"), (8, 1024, 12, 12, 64, True
 
 # The train phase's configurations: (model, batch, seq, remat, timed steps).
 TRAIN_RUNS = [("llama3-1b", 4, 2048, True, 6), ("gpt2-125m", 8, 1024, False, 6)]
+K1_REPEATS = 20  # reruns of K1 on the same inputs, each compared bit for bit
 K1_MAIN_SHAPE = (128, 32, 8, 128, True, "bshd")  # 3 of the 4 served offset-0 chunks
 K1_MAX_SEQ_SHAPE = (2048, 32, 8, 128, True, "bshd")  # the served max_seq, one prompt
 
 PHASES = ("build", "k1", "k2", "head", "model", "serve", "prefix", "guided", "stream", "spec",
-          "train", "remat", "fused", "ckpt")
+          "lora", "train", "remat", "fused", "ckpt")
 
 # The guided phase's specs: (spec, max_tokens). The regex finishes at its
 # accepting dead-end (8 tokens); the schema's integer is unbounded, so
@@ -214,6 +228,12 @@ GUIDED_SPECS = {
 SPEC_DRAFTS = [("ngram", {"method": "ngram", "num_spec_tokens": 6}, 2),
                ("layers8", {"draft_layers": 8, "num_spec_tokens": 4}, 1),
                ("self", {"num_spec_tokens": 4}, 1)]
+# The lora phase: PEFT's default LoRA targets for LLaMA (q_proj, v_proj) at
+# rank 16 with its common lora_alpha = 2 * rank; three adapters in a
+# registry of 4, paged through 2 device slots.
+LORA_CONFIG = {"max_loras": 4, "rank": 16, "cache_slots": 2}
+LORA_ALPHA = 32.0
+LORA_NAMES = ("a0", "a1", "a2")
 
 
 def emit(record: dict) -> None:
@@ -392,6 +412,10 @@ def k1_case(S, H, Hkv, D, causal, layout, seed=0, B=1) -> dict:
     out_ok = bool((err <= OUT_ATOL + OUT_RTOL * ref_out.float().abs()).all())
     lse_err = float((lse - ref_lse).abs().max())
     finite = bool(torch.isfinite(out.float()).all() and torch.isfinite(lse).all())
+    repeats = 0
+    for _ in range(K1_REPEATS):
+        out2, lse2 = flash_forward(q, k, v, causal=causal, scale=scale, layout=layout)
+        repeats += int(torch.equal(out2, out) and torch.equal(lse2, lse))
 
     if layout == "bshd":
         qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -417,7 +441,8 @@ def k1_case(S, H, Hkv, D, causal, layout, seed=0, B=1) -> dict:
                                  "causal": causal, "layout": layout},
         "out_max_abs_err": float(err.max()), "out_tol": [OUT_ATOL, OUT_RTOL],
         "lse_max_abs_err": lse_err, "lse_tol": LSE_ATOL,
-        "ok": out_ok and lse_err <= LSE_ATOL and finite,
+        "bitwise_repeat": [repeats, K1_REPEATS],
+        "ok": out_ok and lse_err <= LSE_ATOL and finite and repeats == K1_REPEATS,
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "kernel_over_library": kernel_ms / library_ms, "host_us": hosts,
         "bound_ms": bound_ms, "bound_us": bound_ms * 1e3, "bound_by": bound_by,
@@ -897,11 +922,12 @@ def phase_serve(margin: float, name: str = "llama3-8b", device: str = "cuda",
     return rec, (cfg, eng.params)
 
 
-def _serve_engine(eng, prompts, max_tokens: int, tag: str) -> list:
+def _serve_engine(eng, prompts, max_tokens: int, tag: str, loras=None) -> list:
     """Submit every prompt to the engine at once (greedy, request ids
-    `tag-i`), wait for all, and return per request its tokens, host-clock
-    TTFT (submit to first callback), TPOT (mean gap between the first and
-    last callbacks) and the flight recorder's `request_timing`."""
+    `tag-i`, each on its LoRA adapter of `loras` or the base model), wait for
+    all, and return per request its tokens, host-clock TTFT (submit to first
+    callback), TPOT (mean gap between the first and last callbacks) and the
+    flight recorder's `request_timing`."""
     import threading
 
     from ray_tpu_torch.llm import SamplingParams
@@ -917,7 +943,8 @@ def _serve_engine(eng, prompts, max_tokens: int, tag: str) -> list:
                 run["done"].set()
 
         run["t0"] = time.perf_counter()
-        eng.submit(p, SamplingParams(max_tokens=max_tokens), cb, request_id=run["rid"])
+        eng.submit(p, SamplingParams(max_tokens=max_tokens), cb, request_id=run["rid"],
+                   lora=loras[i] if loras else "")
         runs.append(run)
     for run in runs:
         if not run["done"].wait(timeout=600):
@@ -1517,6 +1544,290 @@ def phase_spec(cfg, params, margin: float, name: str = "llama3-8b", device: str 
                  and all(runs[k]["spec"]["rounds"] > 0 for k in
                          ("ngram_pass2", "layers8", "self")))
     emit(rec)
+    return rec
+
+
+def _lora_adapters(cfg, params, seed: int) -> tuple:
+    """Random rank-16 q and v factors on every layer for each of LORA_NAMES,
+    numpy f32 (what add_lora takes), B scaled so that ||s A B||_F is a draw
+    from [5 %, 10 %] of the layer's ||W||_F per adapter, layer and
+    projection (s = alpha / rank). Returns the adapters and the ratios,
+    computed from the scaled factors (||A B||_F^2 = sum((A^T A) * (B B^T)))."""
+    import numpy as np
+
+    r = LORA_CONFIG["rank"]
+    s = LORA_ALPHA / r
+    rng = np.random.default_rng(seed)
+    outs = {"q": cfg.n_heads * cfg.head_dim, "v": cfg.n_kv_heads * cfg.head_dim}
+    wnorm = {(i, p): float(params[f"layer_{i}"]["attn"][p]["kernel"].double().norm())
+             for i in range(cfg.n_layers) for p in outs}
+
+    def norm_ab(A, B):
+        return math.sqrt(float(((A.T.astype(np.float64) @ A)
+                                * (B.astype(np.float64) @ B.T)).sum()))
+
+    adapters, ratios = {}, []
+    for name in LORA_NAMES:
+        layers = {}
+        for i in range(cfg.n_layers):
+            w = {}
+            for p, out in outs.items():
+                A = rng.standard_normal((cfg.hidden, r), dtype=np.float32)
+                B = rng.standard_normal((r, out), dtype=np.float32)
+                B *= np.float32(rng.uniform(0.05, 0.10) * wnorm[(i, p)] / (s * norm_ab(A, B)))
+                ratios.append(s * norm_ab(A, B) / wnorm[(i, p)])
+                w[f"{p}_A"], w[f"{p}_B"] = A, B
+            layers[i] = w
+        adapters[name] = layers
+    return adapters, ratios
+
+
+def _merged_params(params, cfg, adapter, device):
+    """The param tree with each layer's q and v kernels replaced by W + s A B,
+    merged in f32 and cast to the kernel's dtype; every other tensor is
+    shared (1.34 GB of new kernels at llama3-8b)."""
+    import torch
+
+    s = LORA_ALPHA / LORA_CONFIG["rank"]
+    out = dict(params)
+    for i, w in adapter.items():
+        layer = dict(params[f"layer_{i}"])
+        attn = dict(layer["attn"])
+        for p in ("q", "v"):
+            W = attn[p]["kernel"]
+            A = torch.from_numpy(w[f"{p}_A"]).to(device)
+            B = torch.from_numpy(w[f"{p}_B"]).to(device)
+            merged = W.float().reshape(cfg.hidden, -1) + s * (A @ B)
+            attn[p] = {**attn[p], "kernel": merged.to(W.dtype).reshape(W.shape)}
+        layer["attn"] = attn
+        out[f"layer_{i}"] = layer
+    return out
+
+
+def phase_lora(cfg, params, margin: float, card: str, name: str = "llama3-8b",
+               device: str = "cuda", lengths=(20, 100, 255, 300), seed: int = 1,
+               adapter_seed: int = 5, max_tokens: int = 32, max_seq: int = 2048,
+               ttft_pairs: int = 3) -> dict:
+    """Multi-LoRA serving on the serve phase's weights and prompts. Three
+    rank-16 adapters on q and v of every layer go through an engine with 2
+    device slots (LORA_CONFIG): a batch of base, a0, a1, a2 (greedy, 32
+    tokens; one adapter request waits for a pin) and the same 4 in reverse
+    order. An engine whose table holds every adapter (it never pages) serves
+    the same two batches, then the 4 prompts as base requests; an engine
+    without lora_config serves those base requests before and after. No
+    prefix cache, so every admission is cold and K1's counts are exact.
+    Admission is FIFO (wfq=False): weighted-fair admission orders tenants
+    (here the adapters) by the service each has had and prefers resident
+    adapters, so the two engines' histories would admit in other orders,
+    and a prompt's chunks depend on what decodes when it is admitted (256
+    rows when nothing does, else 128): the tokens of two schedules may then
+    differ at a near-tie. One engine is alive at a time: an idle engine's
+    stepper polls and takes the GIL from the one that serves.
+
+    Gates: the base request's tokens (and the base batch on the LoRA
+    engine) equal the engine without lora_config's bit for bit, as do a
+    base prompt's logits, and row 0's delta is exactly zero; every adapter
+    token of both LoRA engines passes the teacher-forced check against
+    merged weights (W + s A B, merged in f32); the paged engine's tokens
+    equal the unpaged engine's; K1 runs 32 times per admission; no pin is
+    left, and the page-ins, evictions and hits are the ones the order
+    implies; every cold request pages in once and its warm repeat not at
+    all. Reported with the card: each page-in's ms on the stepper (the H2D
+    copy and the install, synchronized), cold- against warm-adapter TTFT,
+    the TPOT of the mixed batch against the same prompts as base requests
+    on that engine and on the engine without lora_config, and the decode
+    step's kernels with and without LoRA (`profile_engine`)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.llm._engine import DecodeEngine, _lora_delta
+    from ray_tpu_torch.ops.attention import LAUNCHES
+
+    rng = np.random.default_rng(seed)  # the serve phase's prompts
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+    forward = list(zip(prompts, ["", *LORA_NAMES]))
+    batches = {"mixed": forward, "reversed": forward[::-1],
+               "base": [(p, "") for p in prompts]}
+    t0 = time.time()
+    adapters, ratios = _lora_adapters(cfg, params, adapter_seed)
+    make_s = time.time() - t0
+
+    def run(eng, tag, reqs):
+        LAUNCHES.update(flash_fwd=0, flash_bwd=0)
+        t0 = time.time()
+        res = _serve_engine(eng, [p for p, _ in reqs], max_tokens, tag,
+                            loras=[lora for _, lora in reqs])
+        wall = time.time() - t0
+        launches = dict(LAUNCHES)
+        return {"loras": [lora for _, lora in reqs],
+                "prompt_lengths": [len(p) for p, _ in reqs], "wall_s": wall,
+                "ttft_s": [r["ttft_s"] for r in res], "tpot_s": [r["tpot_s"] for r in res],
+                "tpot_s_median": statistics.median(r["tpot_s"] for r in res),
+                "tokens": [r["token_ids"] for r in res], "launches": launches,
+                "launches_expected": {"flash_fwd": cfg.n_layers * len(reqs), "flash_bwd": 0}}
+
+    def by_request(r):
+        return {(n, lora): t for n, lora, t in zip(r["prompt_lengths"], r["loras"], r["tokens"])}
+
+    kw = dict(num_slots=4, max_seq=max_seq, seed=seed, prefix_cache=False, wfq=False,
+              device=device)
+
+    @contextlib.contextmanager
+    def engine(lora_config):
+        eng = DecodeEngine(cfg, params, lora_config=lora_config, **kw)
+        try:
+            for n, a in adapters.items() if lora_config else ():
+                eng.add_lora(n, a, alpha=LORA_ALPHA)
+            _serve_engine(eng, [prompts[0][:8]], 2, "lora-warmup")  # allocator, cuBLAS
+            yield eng
+        finally:
+            eng.shutdown()
+
+    padded = torch.zeros((1, 32), dtype=torch.long, device=device)
+    padded[0, :len(prompts[0])] = torch.tensor(prompts[0], device=device)
+    runs, page_ms, profile = {}, [], {}
+    with engine(None) as bare, torch.inference_mode():
+        runs["bare_base"] = run(bare, "lora-bare", batches["base"])
+        bare_logits = bare._prefill_at(padded, 0, 0, len(prompts[0]))
+        profile["bare"] = profile_engine(bare, K1_MAIN_SHAPE[0]) if device == "cuda" else None
+    with engine(LORA_CONFIG) as paged:
+        cache = paged._adapters
+        page_in = cache._page_in_locked
+
+        def timed_page_in(entry):
+            t0 = time.perf_counter()
+            slot = page_in(entry)
+            _sync(device)  # the H2D copy and the install have landed
+            page_ms.append((time.perf_counter() - t0) * 1e3)
+            return slot
+
+        cache._page_in_locked = timed_page_in
+        blob_bytes = sum(v.nbytes for v in cache._registry[LORA_NAMES[0]].blob.values())
+        for b in ("mixed", "reversed"):
+            runs[f"paged_{b}"] = run(paged, f"lora-paged-{b}", batches[b])
+        paged_stats = paged.adapter_stats()
+        traffic_page_ms = list(page_ms)
+        # Cold- against warm-adapter TTFT, one request at a time: an adapter
+        # that is not resident, then the same request again.
+        LAUNCHES.update(flash_fwd=0, flash_bwd=0)
+        pairs = []
+        for j in range(ttft_pairs):
+            cold = next(n for n in LORA_NAMES if n not in cache.resident_adapters())
+            pair = []
+            for k in range(2):
+                n_page_ins = len(page_ms)
+                res = _serve_engine(paged, [prompts[1]], 4, f"lora-ttft-{j}-{k}", loras=[cold])
+                pair.append((res[0]["ttft_s"], len(page_ms) - n_page_ins))
+            pairs.append({"adapter": cold, "cold_ttft_s": pair[0][0], "warm_ttft_s": pair[1][0],
+                          "page_ins": [pair[0][1], pair[1][1]]})
+        ttft_launches = dict(LAUNCHES)
+        with torch.inference_mode():
+            # Row 0 adds exactly nothing: the delta itself, and a base
+            # prompt's logits against the engine without lora_config's.
+            x = torch.randn(4, 8, cfg.hidden, device=device, dtype=cfg.dtype)
+            ids = torch.zeros(4, dtype=torch.long, device=device)
+            t = cache.tables()
+            zero_delta = not bool(_lora_delta(x, t["q_A"][0][ids], t["q_B"][0][ids],
+                                              t["scale"][0][ids]).any())
+            base_logits_equal = torch.equal(
+                paged._prefill_at(padded, 0, 0, len(prompts[0]), 0), bare_logits)
+        del cache, page_in, timed_page_in
+    with engine({**LORA_CONFIG, "cache_slots": LORA_CONFIG["max_loras"]}) as unpaged:
+        for b in ("mixed", "reversed", "base"):
+            runs[f"unpaged_{b}"] = run(unpaged, f"lora-unpaged-{b}", batches[b])
+        unpaged_stats = unpaged.adapter_stats()
+        profile["lora"] = (profile_engine(unpaged, K1_MAIN_SHAPE[0]) if device == "cuda"
+                           else None)
+    with engine(None) as bare:  # the engine without lora_config again, last
+        runs["bare_base_again"] = run(bare, "lora-bare-again", batches["base"])
+    del paged, unpaged, bare, bare_logits
+    gc.collect()
+    _empty_cache(device)
+
+    # Adapter tokens against a teacher-forced forward over merged weights,
+    # and where the paged and unpaged engines' tokens differ (if they do),
+    # the merged forward's logits of both tokens there.
+    tf, first_divergence = {}, {}
+    paging_equal = {b: by_request(runs[f"paged_{b}"]) == by_request(runs[f"unpaged_{b}"])
+                    for b in ("mixed", "reversed")}
+    for lora in LORA_NAMES:
+        ref = types.SimpleNamespace(cfg=cfg, device=torch.device(device),
+                                    params=_merged_params(params, cfg, adapters[lora], device))
+        for eng_name in ("paged", "unpaged"):
+            ps, answers = [], []
+            for b in ("mixed", "reversed"):
+                r = runs[f"{eng_name}_{b}"]
+                i = r["loras"].index(lora)
+                ps.append(prompts[lengths.index(r["prompt_lengths"][i])])
+                answers.append(r["tokens"][i])
+            exact, total, gap = _teacher_forced(ref, ps, answers)
+            tf[f"{eng_name}_{lora}"] = {"teacher_forced_exact": exact,
+                                        "teacher_forced_total": total, "worst_logit_gap": gap}
+        for b, equal in paging_equal.items():
+            got, want = by_request(runs[f"paged_{b}"]), by_request(runs[f"unpaged_{b}"])
+            n = lengths[LORA_NAMES.index(lora) + 1]
+            if not equal and got[(n, lora)] != want[(n, lora)]:
+                first_divergence[f"{b}:{lora}"] = _divergence(
+                    ref, [prompts[lengths.index(n)]], [want[(n, lora)]], [got[(n, lora)]])[0]
+        del ref
+        gc.collect()
+        _empty_cache(device)
+
+    base_tokens = runs["bare_base"]["tokens"][0]
+    base_equal = {key: by_request(r)[(lengths[0], "")] == base_tokens
+                  for key, r in runs.items() if key != "bare_base"}
+    base_batch_equal = (runs["unpaged_base"]["tokens"] == runs["bare_base"]["tokens"]
+                        == runs["bare_base_again"]["tokens"])
+    expected_stats = {"page_ins": 4, "evictions": 2, "misses": 4, "hits": 2}
+    for r in runs.values():
+        r["ok"] = (r["launches"] == r["launches_expected"]
+                   and all(len(t) == max_tokens for t in r["tokens"]))
+    ttft_expected = {"flash_fwd": cfg.n_layers * 2 * ttft_pairs, "flash_bwd": 0}
+    rec = {
+        "phase": "lora", "model": name, "lora_config": LORA_CONFIG, "alpha": LORA_ALPHA,
+        "adapters": list(LORA_NAMES), "prompt_lengths": list(lengths),
+        "max_tokens": max_tokens, "margin": margin, "adapter_make_s": make_s,
+        "delta_over_weight_ratio": {"min": min(ratios), "median": statistics.median(ratios),
+                                    "max": max(ratios)},
+        "runs": runs, "teacher_forced": tf, "base_tokens_equal_bare": base_equal,
+        "base_batch_equal_bare": base_batch_equal, "base_logits_equal_bare": base_logits_equal,
+        "row0_delta_zero": zero_delta, "paged_tokens_equal_unpaged": paging_equal,
+        "first_divergence": first_divergence,
+        "adapter_stats_paged": paged_stats, "adapter_stats_unpaged": unpaged_stats,
+        "launches": {**{k: r["launches"] for k, r in runs.items()}, "ttft": ttft_launches},
+    }
+    rec["ok"] = (all(r["ok"] for r in runs.values()) and all(base_equal.values())
+                 and base_batch_equal and base_logits_equal and zero_delta
+                 and all(paging_equal.values())
+                 and all(v["worst_logit_gap"] <= margin for v in tf.values())
+                 and paged_stats["pinned"] == 0 and paged_stats["resident"] <= 2
+                 and paged_stats["rejected_full"] > 0
+                 and all(paged_stats[k] == v for k, v in expected_stats.items())
+                 and unpaged_stats["pinned"] == 0 and unpaged_stats["evictions"] == 0
+                 and ttft_launches == ttft_expected
+                 and all(p["page_ins"] == [1, 0] for p in pairs))
+    emit(rec)
+    emit({"phase": "lora_page_in", "card": card, "page_in_ms_traffic": traffic_page_ms,
+          "page_in_ms_all": page_ms, "page_in_ms_median": statistics.median(page_ms),
+          "h2d_mib_per_page_in": blob_bytes / 2**20})
+    emit({"phase": "lora_ttft", "card": card, "pairs": pairs,
+          "cold_ttft_s_median": statistics.median(p["cold_ttft_s"] for p in pairs),
+          "warm_ttft_s_median": statistics.median(p["warm_ttft_s"] for p in pairs)})
+    tpot = {k: r["tpot_s_median"] for k, r in runs.items()}
+    bare_tpot = statistics.mean([tpot["bare_base"], tpot["bare_base_again"]])
+    emit({"phase": "lora_tpot", "card": card, "tpot_s_median": tpot,
+          "mixed_over_base_same_engine": tpot["unpaged_mixed"] / tpot["unpaged_base"],
+          "mixed_over_bare": tpot["unpaged_mixed"] / bare_tpot,
+          "lora_base_over_bare": tpot["unpaged_base"] / bare_tpot,
+          "paged_over_unpaged": tpot["paged_mixed"] / tpot["unpaged_mixed"]})
+    emit({"phase": "lora_kernels_per_step", "card": card, "profile": {
+        k: p and {"decode_step": {f: p["decode_step"][f] for f in
+                                  ("device_kernels", "wall_ms", "device_busy_ms", "idle_share")},
+                  "prefill_chunk": {f: p["prefill_chunk"][f] for f in
+                                    ("device_kernels", "wall_ms", "device_busy_ms", "bucket")}}
+        for k, p in profile.items()}})
     return rec
 
 
@@ -2275,8 +2586,8 @@ def main(argv=None) -> int:
     shapes.install()
     shapes.tag = "model"
     model = phase_model() if "model" in phases else None
-    serve = prefix = guided = stream = spec = serve_fingerprint = None
-    serving = {"serve", "prefix", "guided", "stream", "spec"} & set(phases)
+    serve = prefix = guided = stream = spec = lora = serve_fingerprint = None
+    serving = {"serve", "prefix", "guided", "stream", "spec", "lora"} & set(phases)
     margin = (model["tolerance"] if model else phase_model()["tolerance"]) if serving else None
     if "serve" in phases or "prefix" in phases:
         shapes.tag = "serve"
@@ -2288,7 +2599,7 @@ def main(argv=None) -> int:
         del weights
         gc.collect()
         torch.cuda.empty_cache()
-    if {"guided", "stream", "spec"} & set(phases):
+    if {"guided", "stream", "spec", "lora"} & set(phases):
         server = _guided_server()
         try:
             shapes.tag = "guided"
@@ -2304,6 +2615,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         shapes.tag = "spec"
         spec = phase_spec(*weights, margin=margin) if "spec" in phases else None
+        shapes.tag = "lora"
+        lora = (phase_lora(*weights, margin=margin, card=card["nvidia_smi"])
+                if "lora" in phases else None)
         del weights
     gc.collect()
     torch.cuda.empty_cache()
@@ -2318,8 +2632,19 @@ def main(argv=None) -> int:
     ckpt = phase_ckpt() if "ckpt" in phases else None
     shapes.uninstall()
     shape_rec, _ = phase_shapes(shapes, k1, k2)
-    records = [r for r in (*k1, *k2, *head, model, serve, prefix, guided, stream, spec, *train,
-                           remat, fused, ckpt, shape_rec)
+    lora_shapes = None
+    if lora is not None:
+        # Every K1 shape of the lora phase is a listed case: none of them
+        # may have been found unlisted.
+        unlisted = {tuple(sh[n] for n in ("B", "S", "T", "H", "Hkv", "D", "causal", "layout"))
+                    for sh in shape_rec["unlisted"]["k1"]}
+        mine = [e["shape"] for e in shape_rec["k1"] if "lora" in e["paths"]]
+        lora_shapes = {"phase": "lora_shapes", "k1": mine,
+                       "unlisted": [sh for sh in mine if tuple(sh) in unlisted]}
+        lora_shapes["ok"] = bool(mine) and not lora_shapes["unlisted"]
+        emit(lora_shapes)
+    records = [r for r in (*k1, *k2, *head, model, serve, prefix, guided, stream, spec, lora,
+                           lora_shapes, *train, remat, fused, ckpt, shape_rec)
                if r is not None]
     failed = [r.get("phase") for r in records if not r["ok"]]
     if build is not None and build["spill_bytes"]:
@@ -2339,6 +2664,7 @@ def main(argv=None) -> int:
     by_path["guided_llama3-8b"] = guided["launches"]
     by_path["stream_llama3-8b"] = stream["launches"]
     by_path.update({f"spec_{p}_llama3-8b": c for p, c in spec["launches"].items()})
+    by_path.update({f"lora_{p}_llama3-8b": c for p, c in lora["launches"].items()})
     by_path.update({f"train_{r['model']}": r["launches"] for r in train})
     by_path.update({f"remat_{p}_llama3-1b": c for p, c in remat["launches"].items()})
     by_path["fused_llama3-1b"] = fused["launches"]

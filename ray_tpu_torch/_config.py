@@ -33,6 +33,11 @@ class Config:
     # host bytes for the per-engine paged KV prefix cache; repeated prompt
     # prefixes attach cached KV and prefill suffix-only (0 disables)
     llm_prefix_cache_bytes: int = 32 << 20
+    # device bytes for the engine's pageable LoRA adapter table: device slots
+    # = budget // per-adapter slot bytes; registered adapters stay host-side
+    # and page in on demand (LRU eviction of unpinned adapters); 0 sizes the
+    # table to lora_config max_loras (every registered adapter resident)
+    llm_adapter_cache_bytes: int = 0
     # finished request records kept in each engine's flight-recorder ring:
     # per-request phase events (queue/prefill-chunk/cache-attach/decode)
     # recorded host-side off the dispatch path (0 disables the recorder)

@@ -1,10 +1,12 @@
 """ray_tpu_torch.llm: LLM serving on one GPU, in process.
 
 Twin of `ray_tpu/llm/__init__.py` for this slice: `LLMConfig`, `load_model`
-and `LLMServer` (generate, with guided decoding and its flight-recorder
-`timing` breakdown; generate_stream; recorder_stats; shutdown) over the
-port's `DecodeEngine`, speculative decoding through `LLMConfig.spec_config`.
-The Serve deployment, the OpenAI router and the DP/PD routers are later
+and `LLMServer` (generate, with guided decoding, LoRA adapters and its
+flight-recorder `timing` breakdown; generate_stream; load_lora;
+adapter_stats; recorder_stats; shutdown) over the port's `DecodeEngine`,
+speculative decoding through `LLMConfig.spec_config` and multi-LoRA serving
+through `LLMConfig.lora_config`. The Serve deployment, the OpenAI router
+(with its `model="base:adapter"` selection) and the DP/PD routers are later
 slices (ROADMAP.md).
 """
 
@@ -27,15 +29,18 @@ from ray_tpu_torch.llm._engine import (
     SamplingParams,
     sharded_params,
 )
+from ray_tpu_torch.llm.adapters import AdapterCacheFullError, UnknownAdapterError
 from ray_tpu_torch.llm.generate import ConstraintCompiler
 
 __all__ = [
+    "AdapterCacheFullError",
     "ByteTokenizer",
     "DecodeEngine",
     "EngineOverloadedError",
     "LLMConfig",
     "LLMServer",
     "SamplingParams",
+    "UnknownAdapterError",
     "load_model",
 ]
 
@@ -76,6 +81,11 @@ class LLMConfig:
     max_seq: Optional[int] = None
     tokenizer: Optional[Any] = None  # anything with encode/decode; None -> bytes
     seed: int = 0
+    # Multi-LoRA serving: {"max_loras": N, "rank": r} and optionally
+    # "cache_slots" or "cache_bytes" (the device table's size; adapters page
+    # through it). Adapters register at runtime via LLMServer.load_lora and
+    # are selected per request with generate(lora=name).
+    lora_config: Optional[dict] = None
     # Speculative decoding: e.g. {"method": "ngram", "num_spec_tokens": 8}
     # for the zero-FLOP retrieval draft, or {"draft_layers": j} /
     # {"draft_cfg": ..., "draft_params": ...} for a draft model; {} with
@@ -142,16 +152,25 @@ class LLMServer:
         self._engine = DecodeEngine(
             cfg, params, num_slots=config.num_slots,
             max_seq=config.max_seq or min(cfg.max_seq, 2048), seed=config.seed,
-            spec_config=config.spec_config,
+            lora_config=config.lora_config, spec_config=config.spec_config,
             wfq=config.wfq, tenant_weights=config.tenant_weights,
             tenant_quota=config.tenant_quota, device=config.device,
         )
 
+    async def load_lora(self, name: str, layer_weights: dict, alpha: float = 1.0) -> int:
+        """Register a LoRA adapter on this replica: layer index -> {"q_A":
+        [M, r], "q_B": [r, H*D], "v_A": [M, r], "v_B": [r, Hkv*D]} numpy
+        factors. Returns its stable uid; it pages onto the device on first
+        use."""
+        return self._engine.add_lora(name, layer_weights, alpha)
+
     async def generate(self, prompt: Union[str, List[int]], *,
                        max_tokens: int = 64, temperature: float = 0.0,
                        top_k: int = 0, stop_token_id: Optional[int] = None,
-                       tenant: Optional[str] = None, guided=None) -> Dict[str, Any]:
-        """guided: a regex string, or {"regex": ...}, {"json_schema": ...},
+                       lora: str = "", tenant: Optional[str] = None,
+                       guided=None) -> Dict[str, Any]:
+        """lora: a registered adapter's name ("" = the base model).
+        guided: a regex string, or {"regex": ...}, {"json_schema": ...},
         {"grammar": rules, "root": name} — the output is held to it."""
         t0 = time.monotonic()
         rid = uuid.uuid4().hex  # keys the engine's flight-recorder record
@@ -177,7 +196,7 @@ class LLMServer:
             token_ids,
             SamplingParams(max_tokens=max_tokens, temperature=temperature,
                            top_k=top_k, stop_token_id=stop_token_id),
-            cb, tenant=tenant, request_id=rid, constraint=constraint,
+            cb, lora=lora, tenant=tenant, request_id=rid, constraint=constraint,
         )
         await done
         gen = list(out)
@@ -201,14 +220,15 @@ class LLMServer:
     async def generate_stream(self, prompt: Union[str, List[int]], *,
                               max_tokens: int = 64, temperature: float = 0.0,
                               top_k: int = 0, stop_token_id: Optional[int] = None,
-                              tenant: Optional[str] = None,
+                              lora: str = "", tenant: Optional[str] = None,
                               request_id: Optional[str] = None, guided=None):
         """Async generator: yields text increments as tokens are decoded.
 
         Closing the generator mid-stream (client disconnect) cancels the
         engine request: GeneratorExit lands on the `await`, the finally
         closes the TokenStream, and close() retires the slot and releases
-        the lease and constraint state within one scheduler iteration."""
+        the lease, adapter pin and constraint state within one scheduler
+        iteration."""
         token_ids = (
             self._tokenizer.encode(prompt) if isinstance(prompt, str) else list(prompt)
         )
@@ -223,7 +243,8 @@ class LLMServer:
             token_ids,
             SamplingParams(max_tokens=max_tokens, temperature=temperature,
                            top_k=top_k, stop_token_id=stop_token_id),
-            tenant=tenant, request_id=request_id, on_token=cb, constraint=constraint,
+            lora=lora, tenant=tenant, request_id=request_id, on_token=cb,
+            constraint=constraint,
         )
         # Incremental detokenization with a short prefix window: deltas come
         # from decode(prefix + pending) minus decode(prefix), so tokenizers
@@ -255,6 +276,11 @@ class LLMServer:
             # No-op after a clean finish; on disconnect or error this is the
             # cancel path that frees the slot and the constraint state.
             stream.close()
+
+    async def adapter_stats(self) -> Optional[dict]:
+        """AdapterCache residency and paging counters for this replica's
+        engine (None without lora_config)."""
+        return self._engine.adapter_stats()
 
     async def recorder_stats(self) -> dict:
         """Flight-recorder counters for this replica's engine, with each

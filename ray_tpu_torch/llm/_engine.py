@@ -30,8 +30,17 @@ slots' per-position masks added before the on-device argmax. A model
 draft's prefill is an offset-0 forward, so it runs K1 too. `open_stream`
 hands back a cancellable `TokenStream`.
 
-Not in this slice (each raises): LoRA adapters, tensor parallelism. Not
-ported yet: PD transfer, the cache's device and disk tiers.
+Multi-LoRA serving (`lora_config`, `add_lora`, `submit(lora=)`): a pageable
+`AdapterCache` (`llm/adapters.py`) holds a fixed number of device slots;
+admission pins each request's adapter (paging it in, or leaving the request
+queued while every slot is pinned), and every forward adds the per-slot
+low-rank delta to q and v before RoPE and the KV write, on the K1 route and
+the masked route alike. The prefix cache is namespaced by adapter. A model
+draft runs without adapters, as JAX's does. An engine without `lora_config`
+computes no delta.
+
+Not in this slice (it raises): tensor parallelism. Not ported yet: PD
+transfer, the cache's device and disk tiers.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ import torch.nn.functional as F
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch._config import CONFIG
 from ray_tpu_torch.checkpoint import restore
+from ray_tpu_torch.llm.adapters import AdapterCache, UnknownAdapterError
 from ray_tpu_torch.llm.flight_recorder import FlightRecorder, ServeMetrics
 from ray_tpu_torch.llm.kvcache import PrefixCacheManager
 from ray_tpu_torch.llm.scheduler.scheduler import (
@@ -91,6 +101,15 @@ def _rmsnorm(x, scale, eps):
     return (normed * scale.float()).to(x.dtype)
 
 
+def _lora_delta(x, A, B, scale):
+    """Per-slot low-rank delta: x [B,S,M]; A [B,M,r]; B [B,r,O]; scale [B].
+    Two batched products in x's dtype, then the scale in x's dtype, as JAX
+    computes it (outside any kernel)."""
+    h = torch.bmm(x, A.to(x.dtype))
+    d = torch.bmm(h, B.to(x.dtype))
+    return d * scale[:, None, None].to(x.dtype)
+
+
 def _write_kv(cache, new, write_at, write_gate=None):
     """In place: slot b's rows [at_b, at_b + S) <- new[b]. The start is clamped
     to [0, T - S], as jax.lax.dynamic_update_slice clamps it. A slot whose
@@ -110,18 +129,30 @@ def _write_kv(cache, new, write_at, write_gate=None):
 
 
 def _attn_cached(layer, x, positions, cache_k, cache_v, write_at, kv_mask, cfg,
-                 write_gate=None):
+                 write_gate=None, lora_layer=None, adapter_ids=None):
     """One attention layer against the KV cache.
 
     x: [B, S, M]; positions: [B, S]; cache_k/v: [B, T, Hkv, D] (written in
     place); write_at: [B] start row per slot; kv_mask: [B, S, T] visibility,
     or None for a chunk that starts at row 0 and sees exactly its own rows
-    causally (the K1 kernel's top-left causal mask over rows [0, S))."""
+    causally (the K1 kernel's top-left causal mask over rows [0, S)).
+    lora_layer (optional): this layer's stacked adapter tables {"q_A":
+    [A,M,r], "q_B": [A,r,H*D], "v_A", "v_B", "scale": [A]}, gathered per
+    slot by adapter_ids [B]; the delta lands in q and v before RoPE and the
+    KV write, so both attention routes see it."""
     B, S, _ = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _dense(x, layer["q"]["kernel"].reshape(cfg.hidden, -1)).view(B, S, H, D)
     k = _dense(x, layer["k"]["kernel"].reshape(cfg.hidden, -1)).view(B, S, Hkv, D)
     v = _dense(x, layer["v"]["kernel"].reshape(cfg.hidden, -1)).view(B, S, Hkv, D)
+    if lora_layer is not None:
+        scale = lora_layer["scale"][adapter_ids]
+        dq = _lora_delta(x, lora_layer["q_A"][adapter_ids], lora_layer["q_B"][adapter_ids],
+                         scale)
+        q = q + dq.view(B, S, H, D)
+        dv = _lora_delta(x, lora_layer["v_A"][adapter_ids], lora_layer["v_B"][adapter_ids],
+                         scale)
+        v = v + dv.view(B, S, Hkv, D)
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
     _write_kv(cache_k, k, write_at, write_gate)
@@ -153,15 +184,21 @@ def _mlp(layer, x):
 
 
 def _forward_cached(params: ParamTree, cfg: ModelConfig, tokens, positions, caches,
-                    write_at, kv_mask, write_gate=None):
-    """tokens: [B,S] -> logits [B,S,V] f32; writes the caches in place."""
+                    write_at, kv_mask, write_gate=None, lora=None, adapter_ids=None):
+    """tokens: [B,S] -> logits [B,S,V] f32; writes the caches in place.
+
+    lora: the AdapterCache's stacked tables ({"q_A": [L, A, M, r], ...}),
+    indexed per layer here; adapter_ids [B] picks each slot's row (0 = the
+    base model). None computes no delta."""
     embed = params["embedding"]
     x = embed[tokens].to(cfg.dtype)
     for i in range(cfg.n_layers):
         layer = params[f"layer_{i}"]
         normed = _rmsnorm(x, layer["attn_norm"]["scale"], cfg.norm_eps)
+        lora_layer = None if lora is None else {k: v[i] for k, v in lora.items()}
         x = x + _attn_cached(layer["attn"], normed, positions, caches[i][0],
-                             caches[i][1], write_at, kv_mask, cfg, write_gate)
+                             caches[i][1], write_at, kv_mask, cfg, write_gate,
+                             lora_layer, adapter_ids)
         x = x + _mlp(layer["mlp"], _rmsnorm(x, layer["mlp_norm"]["scale"], cfg.norm_eps))
     x = _rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
     if cfg.tie_embeddings:
@@ -224,8 +261,6 @@ class DecodeEngine:
                  tenant_weights: Optional[Dict[str, float]] = None,
                  tenant_quota: Optional[int] = None,
                  tp=1, device=None):
-        if lora_config:
-            raise _not_in_slice("lora_config (multi-LoRA serving)", "Queue 1, item 7")
         if tp != 1:
             raise _not_in_slice("tp > 1 (tensor-parallel serving)", "Queue 1, item 7")
         if cfg.fused_qkv or "qkv" in params.get("layer_0", {}).get("attn", {}):
@@ -240,6 +275,29 @@ class DecodeEngine:
         self.B = num_slots
         self.T = max_seq or cfg.max_seq
         self._np_rng = np.random.default_rng(seed)
+        # Multi-LoRA: a pageable AdapterCache on the engine's device backs
+        # the stacked tables (row 0 = the base model). lora_config keys:
+        # max_loras (registry cap), rank (rank bucket), cache_bytes /
+        # cache_slots (device budget; default llm_adapter_cache_bytes, 0 =
+        # every registered adapter resident).
+        self._adapters: Optional[AdapterCache] = None
+        if lora_config:
+            budget = lora_config.get("cache_bytes")
+            if budget is None:
+                budget = CONFIG.llm_adapter_cache_bytes
+            self._adapters = AdapterCache(
+                n_layers=cfg.n_layers, hidden=cfg.hidden,
+                q_out=cfg.n_heads * cfg.head_dim,
+                v_out=cfg.n_kv_heads * cfg.head_dim,
+                rank=int(lora_config.get("rank", 8)), dtype=cfg.dtype,
+                max_adapters=int(lora_config.get("max_loras", 4)),
+                budget_bytes=int(budget),
+                cache_slots=lora_config.get("cache_slots"),
+                name=f"engine-{id(self):x}", device=self.device,
+            )
+        # Each slot's adapter row (device table row, not the stable uid),
+        # host-native like lens and shipped with each batched dispatch.
+        self._adapter_ids = np.zeros((self.B,), np.int64)
         kv_shape = (self.B, self.T, cfg.n_kv_heads, cfg.head_dim)
         self._caches = [
             (torch.zeros(kv_shape, dtype=cfg.dtype, device=self.device),
@@ -290,7 +348,10 @@ class DecodeEngine:
         if token_budget is None:
             token_budget = CONFIG.llm_sched_token_budget
         # The prefix-cache lookup is injected so admission plans chunks over
-        # the uncached suffix only.
+        # the uncached suffix only; the adapter pin callbacks make admission
+        # adapter-aware: resident adapters are preferred, cold ones page in
+        # at admission (on the stepper thread and stream), and a fully
+        # pinned cache leaves the request queued instead of failing it.
         lookup = None
         if self._prefix_cache is not None:
             cache = self._prefix_cache
@@ -298,11 +359,16 @@ class DecodeEngine:
             def lookup(prompt, adapter):
                 return cache.lookup(prompt, namespace=adapter)
 
+        adapter_acquire = adapter_resident = None
+        if self._adapters is not None:
+            adapter_acquire = self._adapters.try_acquire
+            adapter_resident = self._adapters.is_resident
         self._sched = Scheduler(
             num_slots=self.B, buckets=self._prefill_buckets, max_seq=self.T,
             token_budget=token_budget, max_queue_depth=max_queue_depth,
             multi_step=self._multi_step, lookup=lookup, wfq=wfq,
             tenant_weights=tenant_weights, tenant_quota=tenant_quota,
+            adapter_acquire=adapter_acquire, adapter_resident=adapter_resident,
         )
         # Request-lifecycle flight recorder + per-tenant SLO burn windows:
         # phase events accrue host-side off the dispatch path; each
@@ -384,16 +450,60 @@ class DecodeEngine:
         device = resolve_device(kwargs.get("device"))
         return cls(cfg, params_from_jax(sharded_params(path), cfg, device), tp=tp, **kwargs)
 
+    # -- lora registry -----------------------------------------------------
+    def add_lora(self, name: str, layer_weights: Dict[int, Dict[str, np.ndarray]],
+                 alpha: float = 1.0) -> int:
+        """Register an adapter host-side. layer_weights: layer index ->
+        {"q_A": [M,r], "q_B": [r,H*D], "v_A": [M,r], "v_B": [r,Hkv*D]}
+        (missing projections stay zero). Shapes and rank are validated
+        against the bucketed table here (ValueError). Returns the adapter's
+        stable uid; the device slot is paged in on first use."""
+        if self._adapters is None:
+            raise ValueError("engine built without lora_config")
+        return self._adapters.register(name, layer_weights, alpha)
+
+    # Explicit alias: the serve layers call this "register_adapter".
+    register_adapter = add_lora
+
+    def _adapter_index(self, lora: str) -> int:
+        """Stable adapter uid for a request ("" = base). Raises the typed,
+        client-visible UnknownAdapterError (a KeyError subclass) instead of
+        a bare KeyError from deep inside the engine."""
+        if not lora:
+            return 0
+        if self._adapters is None:
+            raise UnknownAdapterError(
+                f"unknown lora adapter {lora!r}: engine built without "
+                f"lora_config"
+            )
+        return self._adapters.uid_of(lora)
+
+    def adapter_stats(self) -> Optional[dict]:
+        """AdapterCache residency and paging counters (None when the engine
+        has no lora_config)."""
+        return None if self._adapters is None else self._adapters.stats()
+
     # -- forward passes ----------------------------------------------------
     def _dev(self, arr) -> torch.Tensor:
         return torch.as_tensor(arr, device=self.device)
 
+    def _lora(self, adapter_ids=None) -> dict:
+        """The LoRA arguments of one dispatch: the stacked tables and each
+        row's adapter ids on the device (the slots' `_adapter_ids` unless
+        given). Empty without lora_config: no delta is computed."""
+        if self._adapters is None:
+            return {}
+        if adapter_ids is None:
+            adapter_ids = self._adapter_ids
+        return {"lora": self._adapters.tables(), "adapter_ids": self._dev(adapter_ids)}
+
     def _prefill_at(self, tokens: torch.Tensor, slot: int, offset: int,
-                    total_len: int) -> torch.Tensor:
+                    total_len: int, adapter_slot: int = 0) -> torch.Tensor:
         """tokens: [1, Sbucket] right-padded, starting at row/position
-        `offset` (0 = a prompt's first chunk; > 0 = a later chunk). Writes
-        slot `slot`'s cache rows [offset, offset + S) in place and returns
-        the logits row of prompt position total_len - 1."""
+        `offset` (0 = a prompt's first chunk; > 0 = a later chunk), under
+        the adapter in table row `adapter_slot`. Writes slot `slot`'s cache
+        rows [offset, offset + S) in place and returns the logits row of
+        prompt position total_len - 1."""
         S = tokens.shape[1]
         positions = (offset + torch.arange(S, device=self.device))[None, :]
         # One-slot views: writes through them land in the pool.
@@ -405,23 +515,25 @@ class DecodeEngine:
             mask = (positions[0][:, None]
                     >= torch.arange(self.T, device=self.device)[None, :])[None]
         logits = _forward_cached(self.params, self.cfg, tokens, positions, slot_caches,
-                                 self._dev([offset]), mask)
+                                 self._dev([offset]), mask, **self._lora([adapter_slot]))
         # An intermediate chunk's row is discarded; clamp the index as JAX's
         # gather does.
         return logits[0, min(total_len - 1 - offset, S - 1)]
 
     def _decode_step(self, last_token: torch.Tensor, lens: torch.Tensor,
-                     gate: torch.Tensor):
+                     gate: torch.Tensor, adapter_ids=None):
         """One token for every slot. last_token, lens: [B]; gate: [B] bool —
         only slots in the decode phase land their KV row (a slot mid-chunked-
-        prefill rides through with a stale lens and must not write there).
+        prefill rides through with a stale lens and must not write there);
+        adapter_ids: [B] table rows (default: the slots' own).
         Returns (logits [B, V], lens + 1)."""
         positions = lens[:, None]
         # key j visible iff j <= lens (the new token writes at index lens)
         kv_mask = (torch.arange(self.T, device=self.device)[None, :]
                    <= lens[:, None])[:, None, :]
         logits = _forward_cached(self.params, self.cfg, last_token[:, None], positions,
-                                 self._caches, lens, kv_mask, write_gate=gate)
+                                 self._caches, lens, kv_mask, write_gate=gate,
+                                 **self._lora(adapter_ids))
         return logits[:, 0], lens + 1
 
     def _spec_verify_batched(self, tokens: torch.Tensor, lens: torch.Tensor,
@@ -443,6 +555,7 @@ class DecodeEngine:
         mask always (one compiled program); the eager port passes None in a
         round without a guided participant and adds nothing.
 
+        Each slot verifies under its own adapter (the slots' `_adapter_ids`).
         Returns the on-device argmax [B, k+1] (the host needs k+1 ints per
         slot, not logits)."""
         S = tokens.shape[1]
@@ -450,7 +563,7 @@ class DecodeEngine:
         kv_mask = (torch.arange(self.T, device=self.device)[None, None, :]
                    <= positions[:, :, None])
         logits = _forward_cached(self.params, self.cfg, tokens, positions, self._caches,
-                                 lens, kv_mask, write_gate=gate)
+                                 lens, kv_mask, write_gate=gate, **self._lora())
         if constraint_mask is not None:
             logits = logits + constraint_mask
         return torch.argmax(logits, dim=-1)
@@ -458,10 +571,12 @@ class DecodeEngine:
     def _decode_multi(self, last_token: torch.Tensor, lens: torch.Tensor,
                       gate: torch.Tensor, n: int) -> torch.Tensor:
         """n greedy tokens for every slot with on-device argmax; the caller
-        pulls the [n, B] result to the host once."""
+        pulls the [n, B] result to the host once. The adapter ids ship
+        once for the n steps."""
+        ids = self._lora().get("adapter_ids")
         toks = []
         for _ in range(n):
-            logits, lens = self._decode_step(last_token, lens, gate)
+            logits, lens = self._decode_step(last_token, lens, gate, ids)
             last_token = torch.argmax(logits, dim=-1)
             toks.append(last_token)
         return torch.stack(toks)
@@ -472,7 +587,9 @@ class DecodeEngine:
                lora: str = "", constraint=None):
         """callback(token_id: int, finished: bool) per generated token.
 
-        tenant keys the weighted-fair admission queue; request_id keys the
+        lora names a registered adapter ("" = the base model). tenant keys
+        the weighted-fair admission queue; it defaults to the adapter name,
+        the natural tenant of a LoRA fleet. request_id keys the
         flight-recorder record (`request_timing()`) and is the cancel()
         handle. constraint is a compiled guided-decoding constraint
         (`llm.generate.compile_constraint`: callers own the tokenizer, the
@@ -481,11 +598,9 @@ class DecodeEngine:
         releases on finish, cancel, shutdown and stepper death. Raises
         ValueError when the prompt cannot fit the engine's sequence budget
         (it is never silently truncated) or the constraint was compiled for
-        another logits width, EngineOverloadedError when the tenant's quota
-        or the global depth cap is hit, and RuntimeError when the stepper is
-        dead."""
-        if lora:
-            raise _not_in_slice("LoRA adapters", "Queue 1, item 7")
+        another logits width, UnknownAdapterError for an unregistered
+        adapter, EngineOverloadedError when the tenant's quota or the global
+        depth cap is hit, and RuntimeError when the stepper is dead."""
         self._check_alive()
         token_ids = list(token_ids) or [0]  # empty prompt decodes from token 0
         if len(token_ids) > self.T - 1:
@@ -495,15 +610,16 @@ class DecodeEngine:
                 f"least one token can be generated); truncate the prompt "
                 f"client-side or raise max_seq"
             )
+        adapter = self._adapter_index(lora)
+        self._check_constraint(constraint)
         # The prompt is never truncated; a generation budget that would
         # overflow the KV rows shrinks max_tokens instead.
         headroom = self.T - 1 - len(token_ids)
         if sampling.max_tokens > headroom:
             sampling = dataclasses.replace(sampling, max_tokens=max(1, headroom))
-        self._check_constraint(constraint)
-        tenant = "" if tenant is None else tenant
+        tenant = lora if tenant is None else tenant
         req = Request("prompt", prompt=token_ids, sampling=sampling, callback=callback,
-                      tenant=tenant)
+                      adapter=adapter, tenant=tenant)
         req.rid = request_id
         req.rec = self._start_record(request_id, tenant, prompt_len=len(token_ids))
         if constraint is not None:
@@ -534,15 +650,16 @@ class DecodeEngine:
             )
 
     def open_stream(self, token_ids: List[int], sampling: SamplingParams, *,
-                    tenant: Optional[str] = None, request_id: Optional[str] = None,
-                    on_token=None, constraint=None, buffer_cap: Optional[int] = None):
+                    lora: str = "", tenant: Optional[str] = None,
+                    request_id: Optional[str] = None, on_token=None, constraint=None,
+                    buffer_cap: Optional[int] = None):
         """Submit a request and return its `TokenStream` subscription
         instead of wiring a raw callback: per-token delivery through
         iteration/`get()` (buffered) or the `on_token` relay (the shape
         `LLMServer.generate_stream` uses). The stream's `close()`/`cancel()`
         is the mid-stream-disconnect path: it cancels the request, and the
-        engine frees the slot, prefix lease and constraint state within one
-        scheduler iteration. Every open_stream resolves through close()
+        engine frees the slot, prefix lease, adapter pin and constraint state
+        within one scheduler iteration. Every open_stream resolves through close()
         (iterating to exhaustion closes it)."""
         import uuid
 
@@ -552,7 +669,7 @@ class DecodeEngine:
         stream = TokenStream(self, rid, on_token=on_token, buffer_cap=buffer_cap)
         try:
             self.submit(token_ids, sampling, stream._push, tenant=tenant,
-                        request_id=rid, constraint=constraint)
+                        request_id=rid, lora=lora, constraint=constraint)
         except BaseException:
             # The submit never enqueued: close the subscription without the
             # cancel round-trip (there is no request to cancel).
@@ -631,11 +748,10 @@ class DecodeEngine:
         export side of a prefix transfer. None when the cache is disabled or
         cold. The caller must release() the lease. Its caller is the DP/PD
         routers' prefix pull (ROADMAP.md, Queue 1 item 9)."""
-        if lora:
-            raise _not_in_slice("LoRA adapters", "Queue 1, item 7")
         if self._prefix_cache is None:
             return None
-        return self._prefix_cache.lease_prefix(token_ids, namespace=0)
+        return self._prefix_cache.lease_prefix(token_ids,
+                                               namespace=self._adapter_index(lora))
 
     def insert_prefix(self, token_ids: List[int], kv, lora: str = "") -> int:
         """Feed a prefix's KV rows [L, 2, P, Hkv, D] (numpy or a CPU tensor)
@@ -643,18 +759,19 @@ class DecodeEngine:
         next lookup for these tokens hits locally and prefills suffix-only.
         Returns blocks added. The import side of the routers' prefix pull
         (ROADMAP.md, Queue 1 item 9)."""
-        if lora:
-            raise _not_in_slice("LoRA adapters", "Queue 1, item 7")
         if self._prefix_cache is None:
             return 0
-        return self._prefix_cache.insert(token_ids, kv, namespace=0)
+        adapter = self._adapter_index(lora)
+        return self._prefix_cache.insert(token_ids, kv, namespace=adapter)
 
     def scheduler_stats(self) -> dict:
         """Iteration-level scheduler occupancy (per-phase token counters,
         interleaving, queue depths), speculative-decoding acceptance
-        ("spec", with a draft), the prefix cache's counters and
-        `recorder_stats()`."""
+        ("spec", with a draft), the adapter cache's and the prefix cache's
+        counters and `recorder_stats()`."""
         out = self._sched.stats()
+        if self._adapters is not None:
+            out["adapters"] = self._adapters.stats()
         if self._prefix_cache is not None:
             out["prefix_cache"] = self._prefix_cache.stats()
         if self._draft is not None:
@@ -735,6 +852,7 @@ class DecodeEngine:
                 s.active = False
                 self._release_slot_constraint(s)
                 self._finish_record(s, status="cancelled")
+                self._release_slot_pin(s)
                 if self._draft is not None:
                     self._draft.on_finish(i, s)
                 if s.callback is not None:
@@ -754,11 +872,12 @@ class DecodeEngine:
 
     def _fail_all(self):
         """Fail every active and queued request (callback(-1, True)) so
-        submitters unwind instead of hanging; every slot's constraint state
-        releases here, queued requests' prefix leases and constraint states
-        in the scheduler's drain, and every live flight record retires as
-        "dropped"."""
+        submitters unwind instead of hanging; every slot's adapter pin and
+        constraint state release here, queued and prefilling requests'
+        prefix leases, adapter pins and constraint states in the scheduler's
+        drain, and every live flight record retires as "dropped"."""
         for slot in self._sched.slots:
+            self._release_slot_pin(slot)
             self._release_slot_constraint(slot)
             if slot.active and slot.callback is not None:
                 slot.active = False
@@ -834,7 +953,8 @@ class DecodeEngine:
         t_chunk = time.time()
         padded = np.zeros((1, chunk.bucket), np.int64)
         padded[0, : len(chunk.tokens)] = chunk.tokens
-        last_logits = self._prefill_at(self._dev(padded), slot, offset, req.prompt_len)
+        last_logits = self._prefill_at(self._dev(padded), slot, offset, req.prompt_len,
+                                       req.adapter_slot)
         self._sched.chunk_done(chunk)
         if rec is not None:
             rec.span("prefill-chunk", t_chunk, time.time(),
@@ -867,6 +987,10 @@ class DecodeEngine:
 
     def _start_slot(self, req: Request, first: int):
         self._sched.start_decode(req, first)
+        # The device row, not the stable uid: paging can move an adapter
+        # between rows, but the slot's pin (held until the request ends)
+        # keeps this row valid for the whole generation.
+        self._adapter_ids[req.slot] = req.adapter_slot
         self._last_token[req.slot] = first
         self._emit(req.slot, first)
 
@@ -915,8 +1039,18 @@ class DecodeEngine:
         if done:
             s.active = False
             self._release_slot_constraint(s)
+            self._release_slot_pin(s)
             if self._draft is not None:
                 self._draft.on_finish(slot, s)
+
+    @staticmethod
+    def _release_slot_pin(s):
+        """Unpin the slot's adapter exactly once; the finish, cancel,
+        shutdown and stepper-death paths all funnel here (a second release
+        would free a pin a later admission took)."""
+        handle, s.adapter_handle = s.adapter_handle, None
+        if handle is not None:
+            handle.release()
 
     @staticmethod
     def _release_slot_constraint(s):

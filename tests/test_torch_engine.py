@@ -163,8 +163,7 @@ def test_llm_server_generate(weights, tmp_path):
     assert res["token_ids"] == ref[0]
 
 
-@pytest.mark.parametrize("kw", [{"lora_config": {"max_loras": 2}},
-                                pytest.param({"tp": 2}, id="kw3")])
+@pytest.mark.parametrize("kw", [pytest.param({"tp": 2}, id="kw3")])
 def test_later_slice_features_raise(weights, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port_engine(weights[2], decode_loop=False, **kw)

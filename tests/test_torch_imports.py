@@ -49,5 +49,6 @@ def test_guard_covers_the_copied_modules():
               "ray_tpu_torch/llm/generate/_fsm.py", "ray_tpu_torch/llm/generate/_grammar.py",
               "ray_tpu_torch/llm/generate/_schema.py", "ray_tpu_torch/llm/generate/_stream.py",
               "ray_tpu_torch/llm/scheduler/scheduler.py", "ray_tpu_torch/llm/scheduler/spec.py",
-              "ray_tpu_torch/llm/kvcache/manager.py", "ray_tpu_torch/llm/flight_recorder.py"}
+              "ray_tpu_torch/llm/kvcache/manager.py", "ray_tpu_torch/llm/flight_recorder.py",
+              "ray_tpu_torch/llm/adapters.py"}
     assert copies <= ids, sorted(copies - ids)

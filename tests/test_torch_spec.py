@@ -293,26 +293,50 @@ def test_draft_prefill_runs_the_flash_op_once_per_draft_layer(weights, name, lay
     assert teng._draft.stats()["ready_slots"] == 2
 
 
-def test_llm_server_with_spec_config_and_lora_still_raises(weights, tmp_path):
+def _lora_weights(cfg, seed=5, rank=4):
+    r = np.random.default_rng(seed)
+    return {li: {"q_A": r.normal(size=(cfg.hidden, rank)).astype(np.float32),
+                 "q_B": r.normal(size=(rank, cfg.n_heads * cfg.head_dim)).astype(np.float32),
+                 "v_A": r.normal(size=(cfg.hidden, rank)).astype(np.float32),
+                 "v_B": r.normal(size=(rank, cfg.n_kv_heads * cfg.head_dim)).astype(np.float32)}
+            for li in range(cfg.n_layers)}
+
+
+def test_llm_server_with_spec_config_serves_lora_as_without_spec(weights, tmp_path):
     """LLMConfig.spec_config reaches the engine behind LLMServer: a repeat
     of a greedy request is proposed by the ngram draft and accepted, with
-    the stepper thread's phase order (multi-step on). LoRA still raises."""
+    the stepper thread's phase order (multi-step on). A LoRA request and
+    its repeat through the spec-enabled server give the tokens of the same
+    request on an engine without spec."""
     with open(os.path.join(tmp_path, "params.pkl"), "wb") as f:
         pickle.dump(weights[2], f)
+    cfg = get_config("test-tiny")
+    lora = {"max_loras": 2, "rank": 4}
     server = LLMServer(LLMConfig(model_id="test-tiny", checkpoint_path=str(tmp_path),
-                                 num_slots=2, max_seq=128, device="cpu",
+                                 num_slots=2, max_seq=128, device="cpu", lora_config=lora,
                                  spec_config={"method": "ngram", "num_spec_tokens": 6}))
 
     async def twice():
-        return [await server.generate("repeat me", max_tokens=20) for _ in range(2)]
+        await server.load_lora("a", _lora_weights(cfg), alpha=8.0)
+        out = [await server.generate("repeat me", max_tokens=20) for _ in range(2)]
+        return out + [await server.generate("repeat me", max_tokens=20, lora="a")
+                      for _ in range(2)]
 
     try:
-        first, second = asyncio.run(twice())
+        first, second, lora_first, lora_second = asyncio.run(twice())
         stats = server._engine.scheduler_stats()["spec"]
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            server._engine.submit([1], SamplingParams(), lambda t, f: None, lora="a")
     finally:
         asyncio.run(server.shutdown())
     expect = _run(_port_engine(weights[2]), [list(b"repeat me")], 20, SamplingParams)[0]
     assert first["token_ids"] == second["token_ids"] == expect
     assert stats["accepted_tokens"] > 0 and stats["draft"]["k"] == 6
+    plain = _port_engine(weights[2], lora_config=lora)
+    plain.add_lora("a", _lora_weights(cfg), alpha=8.0)
+    outs = [[] for _ in range(2)]
+    for out in outs:
+        plain.submit(list(b"repeat me"), SamplingParams(max_tokens=20),
+                     lambda t, f, out=out: out.append(t), lora="a")
+        for _ in range(60):
+            _step(plain)
+    assert lora_first["token_ids"] == lora_second["token_ids"] == outs[0] == outs[1]
+    assert lora_first["token_ids"] != expect
