@@ -64,6 +64,16 @@ Phases, each printing one JSON record per line:
            equal to an engine that never pages, K1 once per layer per
            admission, no pin left; page-in ms, cold- against warm-adapter
            TTFT, the delta's TPOT cost and kernels per decode step
+  pd       the PD handoff in process on the serve prompts and weights: a
+           prefill engine's prefill_detached (no slot taken; K1 once per
+           layer per prompt) and a decode engine's submit_prefilled, the
+           rows handed over as a host tensor, as f32 numpy and as a CUDA
+           tensor, beside a mono engine (FIFO, no token budget, no prefix
+           cache): the detached rows bit for bit the mono engine's prefill
+           rows, every pair run's tokens equal to the mono engine's and
+           through the teacher-forced check, no K1 and no prefill chunk on
+           the decode engine; each attach's ms per form, the detached
+           prefill's ms beside the mono TTFT
   train    init_state/build_train_step on llama3-1b (full width and depth,
            [4, 2048], remat, fused cross-entropy) and on gpt2-125m ([8, 1024],
            no remat, plain cross-entropy): step-1 gradients of the flash route
@@ -90,7 +100,8 @@ launch counts, both kernels', are set to 0 just before each main path (the
 model's forward, the served requests, each configuration's and each remat
 policy's train steps, the prefix phase's cold request, its hits and its
 uncached requests, the guided batch, the stream phase's requests, each
-spec-phase run, each lora-phase batch and its cold/warm requests) and read
+spec-phase run, each lora-phase batch and its cold/warm requests, the pd
+phase's mono requests, its detached prefills and each of its pair runs) and read
 just after; the kernels line's
 `launches` are K1's on the served requests and K2's on llama3-1b's steps,
 with every path's counts beside them.
@@ -211,7 +222,7 @@ K1_MAIN_SHAPE = (128, 32, 8, 128, True, "bshd")  # 3 of the 4 served offset-0 ch
 K1_MAX_SEQ_SHAPE = (2048, 32, 8, 128, True, "bshd")  # the served max_seq, one prompt
 
 PHASES = ("build", "k1", "k2", "head", "model", "serve", "prefix", "guided", "stream", "spec",
-          "lora", "train", "remat", "fused", "ckpt")
+          "lora", "pd", "train", "remat", "fused", "ckpt")
 
 # The guided phase's specs: (spec, max_tokens). The regex finishes at its
 # accepting dead-end (8 tokens); the schema's integer is unbounded, so
@@ -1831,6 +1842,191 @@ def phase_lora(cfg, params, margin: float, card: str, name: str = "llama3-8b",
     return rec
 
 
+def _pd_run(pre_out, dec, prompts, max_tokens: int, tag: str, form, device: str) -> dict:
+    """The decode half of the PD pair: each detached prefill's kv put into
+    the transfer form (`form`, timed and synchronized: the record's
+    `pd-transfer` span), all of them before the first submit, so no copy
+    runs beside an attach; then every request submitted to `dec` at once
+    with its token ids; waits for all."""
+    import threading
+
+    from ray_tpu_torch.llm import SamplingParams
+
+    payloads = []
+    for _, kv, _ in pre_out:
+        t0 = time.perf_counter()
+        payload = form(kv)
+        _sync(device)
+        payloads.append((payload, time.perf_counter() - t0))
+    runs = []
+    for i, ((first, _, plen), (payload, transfer_s), p) in enumerate(
+            zip(pre_out, payloads, prompts)):
+        run = {"rid": f"{tag}-{i}", "tokens": [], "times": [], "done": threading.Event(),
+               "transfer_ms": transfer_s * 1e3}
+
+        def cb(token, last, run=run):
+            run["times"].append(time.perf_counter())
+            run["tokens"].append(token)
+            if last:
+                run["done"].set()
+
+        run["t0"] = time.perf_counter()
+        dec.submit_prefilled(payload, plen, first, SamplingParams(max_tokens=max_tokens), cb,
+                             token_ids=p, request_id=run["rid"], transfer_s=transfer_s)
+        runs.append(run)
+    for run in runs:
+        if not run["done"].wait(timeout=600):
+            raise RuntimeError(f"request {run['rid']} did not finish: {dec.error}")
+    attach = [next(a for n, _, _, a in _events(dec, r["rid"]) if n == "pd-attach") for r in runs]
+    return {"tokens": [r["tokens"] for r in runs],
+            "transfer_ms": [r["transfer_ms"] for r in runs],
+            "ttft_s": [r["times"][0] - r["t0"] for r in runs],
+            "tpot_s": [(r["times"][-1] - r["times"][0]) / max(1, len(r["times"]) - 1)
+                       for r in runs],
+            "on_device": [a["on_device"] for a in attach],
+            "attach_buckets": [a["bucket"] for a in attach],
+            "timing": [dec.request_timing(r["rid"]) for r in runs]}
+
+
+def phase_pd(cfg, params, margin: float, card: str, name: str = "llama3-8b",
+             device: str = "cuda", lengths=(20, 100, 255, 300), seed: int = 1,
+             max_tokens: int = 32, max_seq: int = 2048) -> dict:
+    """The PD handoff in process on the serve phase's weights and prompts:
+    a prefill engine (no stepper, no slot taken) runs `prefill_detached` on
+    each prompt, and a decode engine admits them from the transferred rows
+    and first logits (`submit_prefilled`), three times: the rows as the
+    host tensor prefill_detached returns, as f32 numpy, and as a CUDA
+    tensor on the card. A mono engine serves the same 4 prompts first. All
+    engines admit FIFO with no token budget (each prompt is one offset-0
+    chunk, as the detached prefill is one offset-0 forward) and no prefix
+    cache, so the two paths run the same K1 launches on the same inputs.
+
+    Gates: each detached prompt's rows equal the mono engine's prefill rows
+    bit for bit; every pair run's tokens equal the mono engine's (and pass
+    the teacher-forced check); K1 runs 32 times per prompt on the mono
+    engine and on the detached prefill, never on the decode engine; the
+    prefill engine takes no slot and the decode engine runs no prefill
+    chunk; the attach is on the device exactly for the CUDA form; every
+    reply's timing has pd-transfer, pd-attach and decode. Reported with the
+    card: each attach's ms on the stepper (synchronized) per form, the
+    transfer form's ms, the detached prefill's ms (host clock, ending in its
+    read-back) beside the mono engine's TTFT, and TPOT per run."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.llm._engine import DecodeEngine
+    from ray_tpu_torch.ops.attention import LAUNCHES
+
+    rng = np.random.default_rng(seed)  # the serve phase's prompts
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+    kw = dict(num_slots=4, max_seq=max_seq, seed=seed, prefix_cache=False, wfq=False,
+              token_budget=0, device=device)
+    expected_k1 = {"flash_fwd": cfg.n_layers * len(prompts), "flash_bwd": 0}
+
+    def rows(eng, slot, n):
+        return torch.stack([torch.stack([ck[slot, :n], cv[slot, :n]]) for ck, cv in eng._caches])
+
+    mono = DecodeEngine(cfg, params, **kw)
+    try:
+        _serve_engine(mono, [prompts[0][:8]], 2, "pd-warmup")  # allocator, cuBLAS
+        LAUNCHES.update(flash_fwd=0, flash_bwd=0)
+        mono_res = _serve_engine(mono, prompts, max_tokens, "pd-mono")
+        mono_launches = dict(LAUNCHES)
+        slots = [next(a["slot"] for n, _, _, a in _events(mono, r["rid"]) if n == "admitted")
+                 for r in mono_res]
+        mono_rows = [rows(mono, s, len(p)).clone() for s, p in zip(slots, prompts)]
+    finally:
+        mono.shutdown()
+    del mono
+    mono_tokens = [r["token_ids"] for r in mono_res]
+
+    pre = DecodeEngine(cfg, params, **{**kw, "num_slots": 1, "decode_loop": False})
+    dec = DecodeEngine(cfg, params, **kw)
+    attach_ms = []
+    attach = dec._attach_kv
+
+    def timed_attach(slot, kv):
+        t0 = time.perf_counter()
+        attach(slot, kv)
+        _sync(device)  # the rows have landed
+        attach_ms.append((time.perf_counter() - t0) * 1e3)
+
+    dec._attach_kv = timed_attach
+    forms = {"host_tensor": lambda kv: kv, "numpy_f32": lambda kv: kv.float().numpy(),
+             "cuda_tensor": lambda kv: kv.to(device)}
+    pairs = {}
+    try:
+        pre.prefill_detached(prompts[0][:8])  # warm-up
+        LAUNCHES.update(flash_fwd=0, flash_bwd=0)
+        pre_out, detached_ms = [], []
+        for i, p in enumerate(prompts):
+            t0 = time.perf_counter()
+            pre_out.append(pre.prefill_detached(p, request_id=f"pd-pre-{i}"))
+            detached_ms.append((time.perf_counter() - t0) * 1e3)
+        detached_launches = dict(LAUNCHES)
+        rows_equal = [torch.equal(kv.to(device), ref)
+                      for (_, kv, _), ref in zip(pre_out, mono_rows)]
+        del mono_rows
+        for form_name, form in forms.items():
+            n_attach = len(attach_ms)
+            LAUNCHES.update(flash_fwd=0, flash_bwd=0)
+            t0 = time.time()
+            run = _pd_run(pre_out, dec, prompts, max_tokens, f"pd-{form_name}", form, device)
+            run.update(wall_s=time.time() - t0, launches=dict(LAUNCHES),
+                       attach_ms=attach_ms[n_attach:])
+            pairs[form_name] = run
+        pre_admitted = pre._sched.stats()["admitted"]
+        dec_chunks = dec._sched.stats()["prefill_chunks"]
+        pre_timing = [pre.request_timing(f"pd-pre-{i}") for i in range(len(prompts))]
+        exact, total, gap = _teacher_forced(dec, prompts, pairs["host_tensor"]["tokens"])
+    finally:
+        pre.shutdown()
+        dec.shutdown()
+    kv_mib = [kv.numel() * kv.element_size() / 2**20 for _, kv, _ in pre_out]
+    del pre, dec, pre_out
+    gc.collect()
+    _empty_cache(device)
+
+    for form_name, r in pairs.items():
+        r["tokens_equal_mono"] = r["tokens"] == mono_tokens
+        r["ok"] = (r["tokens_equal_mono"] and r["launches"] == {"flash_fwd": 0, "flash_bwd": 0}
+                   and r["on_device"] == [form_name == "cuda_tensor"] * len(prompts)
+                   and all(t is not None and {"pd-transfer", "pd-attach", "decode"}
+                           <= set(t["phases"]) for t in r["timing"]))
+    rec = {
+        "phase": "pd", "model": name, "prompt_lengths": list(lengths),
+        "max_tokens": max_tokens, "margin": margin,
+        "mono": {"tokens": mono_tokens, "launches": mono_launches,
+                 "ttft_s": [r["ttft_s"] for r in mono_res],
+                 "tpot_s": [r["tpot_s"] for r in mono_res]},
+        "detached": {"ms": detached_ms, "launches": detached_launches,
+                     "rows_equal_mono": rows_equal, "kv_mib": kv_mib,
+                     "timing": pre_timing},
+        "launches_expected": expected_k1, "pairs": pairs,
+        "prefill_engine_admitted": pre_admitted, "decode_engine_prefill_chunks": dec_chunks,
+        "teacher_forced_exact": exact, "teacher_forced_total": total, "worst_logit_gap": gap,
+        "launches": {"mono": mono_launches, "detached": detached_launches,
+                     **{f"decode_{k}": r["launches"] for k, r in pairs.items()}},
+    }
+    rec["ok"] = (mono_launches == expected_k1 and detached_launches == expected_k1
+                 and all(rows_equal) and all(r["ok"] for r in pairs.values())
+                 and all(len(t) == max_tokens for t in mono_tokens)
+                 and pre_admitted == 0 and dec_chunks == 0 and gap <= margin
+                 and all(t is not None and "prefill-detached" in t["phases"]
+                         for t in pre_timing))
+    emit(rec)
+    emit({"phase": "pd_attach", "card": card, "prompt_lengths": list(lengths),
+          "kv_mib": kv_mib,
+          "attach_ms": {k: r["attach_ms"] for k, r in pairs.items()},
+          "transfer_ms": {k: r["transfer_ms"] for k, r in pairs.items()},
+          "detached_prefill_ms": detached_ms,
+          "mono_ttft_ms": [r["ttft_s"] * 1e3 for r in mono_res],
+          "tpot_s_median": {"mono": statistics.median(rec["mono"]["tpot_s"]),
+                            **{k: statistics.median(r["tpot_s"]) for k, r in pairs.items()}},
+          "k1_launches_detached": detached_launches["flash_fwd"]})
+    return rec
+
+
 # Device time by kind of kernel, from the kernel's name.
 KERNEL_CLASSES = (
     ("k1", ("flash_fwd_kernel",)),
@@ -2586,8 +2782,8 @@ def main(argv=None) -> int:
     shapes.install()
     shapes.tag = "model"
     model = phase_model() if "model" in phases else None
-    serve = prefix = guided = stream = spec = lora = serve_fingerprint = None
-    serving = {"serve", "prefix", "guided", "stream", "spec", "lora"} & set(phases)
+    serve = prefix = guided = stream = spec = lora = pd = serve_fingerprint = None
+    serving = {"serve", "prefix", "guided", "stream", "spec", "lora", "pd"} & set(phases)
     margin = (model["tolerance"] if model else phase_model()["tolerance"]) if serving else None
     if "serve" in phases or "prefix" in phases:
         shapes.tag = "serve"
@@ -2599,7 +2795,7 @@ def main(argv=None) -> int:
         del weights
         gc.collect()
         torch.cuda.empty_cache()
-    if {"guided", "stream", "spec", "lora"} & set(phases):
+    if {"guided", "stream", "spec", "lora", "pd"} & set(phases):
         server = _guided_server()
         try:
             shapes.tag = "guided"
@@ -2618,6 +2814,9 @@ def main(argv=None) -> int:
         shapes.tag = "lora"
         lora = (phase_lora(*weights, margin=margin, card=card["nvidia_smi"])
                 if "lora" in phases else None)
+        shapes.tag = "pd"
+        pd = (phase_pd(*weights, margin=margin, card=card["nvidia_smi"])
+              if "pd" in phases else None)
         del weights
     gc.collect()
     torch.cuda.empty_cache()
@@ -2644,7 +2843,7 @@ def main(argv=None) -> int:
         lora_shapes["ok"] = bool(mine) and not lora_shapes["unlisted"]
         emit(lora_shapes)
     records = [r for r in (*k1, *k2, *head, model, serve, prefix, guided, stream, spec, lora,
-                           lora_shapes, *train, remat, fused, ckpt, shape_rec)
+                           lora_shapes, pd, *train, remat, fused, ckpt, shape_rec)
                if r is not None]
     failed = [r.get("phase") for r in records if not r["ok"]]
     if build is not None and build["spill_bytes"]:
@@ -2665,6 +2864,7 @@ def main(argv=None) -> int:
     by_path["stream_llama3-8b"] = stream["launches"]
     by_path.update({f"spec_{p}_llama3-8b": c for p, c in spec["launches"].items()})
     by_path.update({f"lora_{p}_llama3-8b": c for p, c in lora["launches"].items()})
+    by_path.update({f"pd_{p}_llama3-8b": c for p, c in pd["launches"].items()})
     by_path.update({f"train_{r['model']}": r["launches"] for r in train})
     by_path.update({f"remat_{p}_llama3-1b": c for p, c in remat["launches"].items()})
     by_path["fused_llama3-1b"] = fused["launches"]

@@ -2,12 +2,15 @@
 
 Twin of `ray_tpu/llm/__init__.py` for this slice: `LLMConfig`, `load_model`
 and `LLMServer` (generate, with guided decoding, LoRA adapters and its
-flight-recorder `timing` breakdown; generate_stream; load_lora;
-adapter_stats; recorder_stats; shutdown) over the port's `DecodeEngine`,
-speculative decoding through `LLMConfig.spec_config` and multi-LoRA serving
-through `LLMConfig.lora_config`. The Serve deployment, the OpenAI router
-(with its `model="base:adapter"` selection) and the DP/PD routers are later
-slices (ROADMAP.md).
+flight-recorder `timing` breakdown; generate_stream; load_lora; model_id;
+cache_stats; scheduler_stats; adapter_stats; recorder_stats;
+set_tenant_weight; autopilot_signals; shutdown) over the port's
+`DecodeEngine`, speculative decoding through `LLMConfig.spec_config` and
+multi-LoRA serving through `LLMConfig.lora_config`. The PD handoff runs on
+the engines (`DecodeEngine.prefill_detached` and `submit_prefilled`). The
+Serve deployment, the OpenAI router (with its `model="base:adapter"`
+selection), the DP/PD routers, `export_prefix`/`import_prefix` and
+`capture_profile` are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -277,6 +280,19 @@ class LLMServer:
             # cancel path that frees the slot and the constraint state.
             stream.close()
 
+    async def model_id(self) -> str:
+        return self._config.model_id
+
+    async def cache_stats(self) -> Optional[dict]:
+        """Paged KV prefix-cache counters for this replica's engine (None when
+        the cache is disabled)."""
+        return self._engine.prefix_cache_stats()
+
+    async def scheduler_stats(self) -> dict:
+        """Iteration-level scheduler occupancy, speculative-decoding
+        acceptance and per-tenant metering for this replica's engine."""
+        return self._engine.scheduler_stats()
+
     async def adapter_stats(self) -> Optional[dict]:
         """AdapterCache residency and paging counters for this replica's
         engine (None without lora_config)."""
@@ -287,6 +303,17 @@ class LLMServer:
         tenant's SLO burn rate ("burn_rates"; the targets are
         llm_slo_ttft_s, llm_slo_tpot_s and llm_slo_error_budget)."""
         return self._engine.recorder_stats()
+
+    async def set_tenant_weight(self, tenant: str, weight: float) -> float:
+        """Reshare one tenant's weighted-fair queue weight on this replica's
+        engine (the serve autopilot's actuator). Returns the weight."""
+        self._engine.set_tenant_weight(tenant, weight)
+        return float(weight)
+
+    async def autopilot_signals(self) -> dict:
+        """Queue depth, occupancy and per-tenant SLO burn rates of this
+        replica's engine (`DecodeEngine.autopilot_signals`)."""
+        return self._engine.autopilot_signals()
 
     async def shutdown(self):
         """Stop the stepper and fail queued requests so blocked submitters

@@ -39,8 +39,17 @@ the masked route alike. The prefix cache is namespaced by adapter. A model
 draft runs without adapters, as JAX's does. An engine without `lora_config`
 computes no delta.
 
-Not in this slice (it raises): tensor parallelism. Not ported yet: PD
-transfer, the cache's device and disk tiers.
+The PD handoff in process (prefill/decode disaggregation): one engine's
+`prefill_detached` prefills a prompt without holding a decode slot and
+returns its first logits and KV rows; another engine's `submit_prefilled`
+admits a request from them, and its stepper attaches the rows and samples
+the first token (`_exec_attach`). The detached cold prefill is an offset-0
+forward over scratch caches, so it runs K1 as a local prompt's first chunk
+does; a prefix-cache hit prefills only the suffix through the masked route.
+The detached rows are exactly [0, prompt_len) (JAX pads them to a bucket).
+
+Not in this slice (it raises): tensor parallelism. Not ported yet: the
+cache's device and disk tiers, the DeviceChannel transport.
 """
 
 from __future__ import annotations
@@ -220,6 +229,13 @@ def _sample_host(logits_row: np.ndarray, sampling: SamplingParams,
     probs = np.exp(scaled)
     probs /= probs.sum()
     return int(rng.choice(len(probs), p=probs))
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of t. From a CUDA tensor into pageable memory the copy
+    returns only once the stream has run every launch before it, so the
+    reads that produced t are complete when it returns."""
+    return t.to("cpu")
 
 
 def _tree_to(tree, device):
@@ -622,8 +638,14 @@ class DecodeEngine:
                       adapter=adapter, tenant=tenant)
         req.rid = request_id
         req.rec = self._start_record(request_id, tenant, prompt_len=len(token_ids))
+        self._enqueue(req, constraint)
+
+    def _enqueue(self, req: Request, constraint):
+        """Begin the request's constraint state and hand the request to the
+        scheduler. On EngineOverloadedError the state is released and the
+        record retires as "rejected" before the error propagates."""
         if constraint is not None:
-            req.constraint = constraint.begin(request_id or f"req-{id(req):x}")
+            req.constraint = constraint.begin(req.rid or f"req-{id(req):x}")
         try:
             self._sched.submit(req)
         except EngineOverloadedError:
@@ -648,6 +670,50 @@ class DecodeEngine:
                 f"compile_constraint(spec, tokenizer, vocab_size) must use "
                 f"the model's logits width"
             )
+
+    def submit_prefilled(self, kv, prompt_len: int, first_logits, sampling: SamplingParams,
+                         callback, lora: str = "", token_ids: Optional[List[int]] = None,
+                         tenant: Optional[str] = None, request_id: Optional[str] = None,
+                         transfer_s: Optional[float] = None, constraint=None):
+        """Admit a request whose prefill ran elsewhere (PD disaggregation):
+        kv [L, 2, P, Hkv, D] with P >= prompt_len is the transferred prefix
+        (host numpy, a CPU tensor, or a CUDA tensor on this engine's device,
+        which is attached without a host round trip) and first_logits [V]
+        the prompt's last-position logits. token_ids (optional, the prompt
+        behind kv) feeds the transferred prefix to this engine's prefix
+        cache and keeps the slot spec-eligible. transfer_s, the seconds the
+        caller spent moving kv, becomes the record's `pd-transfer` span.
+        Raises as submit() does; a prefix that leaves no row to generate
+        into (prompt_len >= max_seq) raises ValueError."""
+        self._check_alive()
+        if prompt_len >= self.T:
+            raise ValueError(
+                f"transferred KV prefix of {prompt_len} tokens does not fit this "
+                f"decode engine's max_seq={self.T}; align prefill and decode "
+                f"max_seq"
+            )
+        adapter = self._adapter_index(lora)
+        self._check_constraint(constraint)
+        # The same KV headroom contract as the prompt path.
+        headroom = self.T - 1 - prompt_len
+        if sampling.max_tokens > headroom:
+            sampling = dataclasses.replace(sampling, max_tokens=max(1, headroom))
+        if isinstance(kv, torch.Tensor) and kv.is_cuda:
+            # The stepper reads kv on the engine's stream: work still queued
+            # on the submitter's stream must have landed first.
+            producer = torch.cuda.current_stream(kv.device)
+            if producer != self._stream:
+                producer.synchronize()
+        tenant = lora if tenant is None else tenant
+        req = Request("prefilled", prompt=None if token_ids is None else list(token_ids),
+                      prompt_len=int(prompt_len), sampling=sampling, callback=callback,
+                      adapter=adapter, kv=kv, first_logits=first_logits, tenant=tenant)
+        req.rid = request_id
+        req.rec = self._start_record(request_id, tenant, prompt_len=int(prompt_len))
+        if req.rec is not None and transfer_s is not None:
+            t1 = time.time()
+            req.rec.span("pd-transfer", t1 - transfer_s, t1, prompt_len=int(prompt_len))
+        self._enqueue(req, constraint)
 
     def open_stream(self, token_ids: List[int], sampling: SamplingParams, *,
                     lora: str = "", tenant: Optional[str] = None,
@@ -700,6 +766,132 @@ class DecodeEngine:
         with self._cancel_lock:
             self._pending_cancels.add(request_id)
         return True
+
+    def prefill_detached(self, token_ids: List[int], lora: str = "",
+                         request_id: Optional[str] = None):
+        """Prefill without holding a decode slot, for transfer to a decode
+        engine's `submit_prefilled`: returns (first_logits [V] f32 numpy,
+        kv [L, 2, P, Hkv, D] on the host in the cache dtype, prompt_len),
+        here with P == prompt_len. A prompt that does not fit raises
+        ValueError (it is never truncated). A prefix-cache hit prefills only
+        the suffix against the leased rows; the prompt's whole blocks then
+        feed the cache.
+
+        It runs on the caller's thread while the stepper keeps decoding, so
+        it touches neither `_caches` nor `_lens`: its forward writes scratch
+        caches of its own, on the engine's stream. The adapter pin is held
+        until the results are on the host. JAX may release it once the
+        program is dispatched (its tables are immutable); here a released
+        row may be paged over in place on the stepper's stream while the
+        forward still reads it."""
+        prompt = list(token_ids)
+        if len(prompt) > self.T - 1:
+            raise ValueError(
+                f"prompt of {len(prompt)} tokens exceeds this prefill engine's "
+                f"max_seq={self.T} budget (prompt_len <= max_seq - 1); "
+                f"truncate the prompt client-side or raise max_seq"
+            )
+        adapter = self._adapter_index(lora)  # stable uid: the cache namespace
+        rec = self._recorder.start(request_id, tenant=lora)
+        t_pf0 = time.time()
+        handle = None
+        with self._device_context():
+            if self._adapters is not None and adapter:
+                resident = self._adapters.is_resident(adapter)
+                try:
+                    # A page-in's copy lands on the engine's stream (held here).
+                    handle = self._adapters.acquire(adapter)
+                except BaseException:
+                    self._recorder.drop(rec)
+                    raise
+                if rec is not None and not resident:
+                    rec.mark("adapter-page-in", adapter=adapter)
+            try:
+                adapter_slot = 0 if handle is None else handle.slot
+                lease = None
+                tier = "host"
+                if self._prefix_cache is not None:
+                    lease = self._prefix_cache.lookup(prompt, namespace=adapter)
+                if lease is not None:
+                    # Released in a finally: the detached path has no
+                    # scheduler drain to release a lease it strands.
+                    try:
+                        m = lease.matched_tokens
+                        tier = lease.tier
+                        prefix_kv = lease.kv()  # a new tensor: safe to release
+                    finally:
+                        lease.release()
+                    first_logits, kv = self._detached_suffix(prompt, m, prefix_kv,
+                                                             adapter_slot)
+                else:
+                    m = 0
+                    first_logits, kv = self._detached_cold(prompt, adapter_slot)
+            except BaseException:
+                self._recorder.drop(rec)
+                raise
+            finally:
+                # Both results are host copies by now: every read of the
+                # adapter's row is complete, so the row may be paged over.
+                if handle is not None:
+                    handle.release()
+        self.last_prefill = {"offset": m, "prompt_len": len(prompt), "detached": True,
+                             "tier": tier}
+        if rec is not None:
+            rec.span("prefill-detached", t_pf0, time.time(), prompt_len=len(prompt),
+                     cached_tokens=m, tier=tier)
+            # A prefill-only record has no tokens: it feeds the ring, not the
+            # SLO windows.
+            self._recorder.finish(rec)
+        if self._prefix_cache is not None:
+            n = (len(prompt) // self._prefix_cache.block_size) * self._prefix_cache.block_size
+            if n > m:  # nothing new when the hit covered every whole block
+                self._prefix_cache.insert(prompt[:n], kv, namespace=adapter)
+        return first_logits, kv, len(prompt)
+
+    def _detached_cold(self, prompt: List[int], adapter_slot: int):
+        """The whole prompt at offset 0 over scratch caches of its bucket: the
+        attention is K1's, as a local prompt's first chunk. Returns host
+        copies of (first_logits [V], kv rows [0, prompt_len))."""
+        cfg, n = self.cfg, len(prompt)
+        S = self._bucket(n)
+        padded = np.zeros((1, S), np.int64)
+        padded[0, :n] = prompt
+        # One buffer holds every layer's scratch rows: [L, 2, 1, S, Hkv, D].
+        scratch = torch.zeros((cfg.n_layers, 2, 1, S, cfg.n_kv_heads, cfg.head_dim),
+                              dtype=cfg.dtype, device=self.device)
+        logits = _forward_cached(
+            self.params, cfg, self._dev(padded), torch.arange(S, device=self.device)[None],
+            [(layer[0], layer[1]) for layer in scratch], self._dev([0]), None,
+            **self._lora([adapter_slot]))
+        return (_to_host(logits[0, n - 1]).numpy(),
+                _to_host(scratch[:, :, 0, :n]))
+
+    def _detached_suffix(self, prompt: List[int], m: int, prefix_kv: torch.Tensor,
+                         adapter_slot: int):
+        """Detached prefill of prompt[m:] against a cached m-row prefix
+        (prefix_kv [L, 2, m, Hkv, D] on the host), with the cold path's
+        contract. As JAX lays it out: the prefix padded to its own bucket mb
+        in rows [0, mb), the suffix's bucket sb in rows [mb, mb + sb); a
+        suffix row sees the real prefix rows and the suffix rows up to its
+        own, through the masked route."""
+        cfg = self.cfg
+        suffix = prompt[m:]
+        mb, sb = self._bucket(m), self._bucket(len(suffix))
+        padded = np.zeros((1, sb), np.int64)
+        padded[0, :len(suffix)] = suffix
+        scratch = torch.zeros((cfg.n_layers, 2, 1, mb + sb, cfg.n_kv_heads, cfg.head_dim),
+                              dtype=cfg.dtype, device=self.device)
+        scratch[:, :, 0, :m] = prefix_kv.to(self.device)
+        rows = torch.arange(mb + sb, device=self.device)[None, :]
+        steps = torch.arange(sb, device=self.device)[:, None]
+        mask = ((rows < m) | ((rows >= mb) & (rows - mb <= steps)))[None]
+        logits = _forward_cached(
+            self.params, cfg, self._dev(padded), (m + steps.T),
+            [(layer[0], layer[1]) for layer in scratch], self._dev([mb]), mask,
+            **self._lora([adapter_slot]))
+        suffix_kv = _to_host(scratch[:, :, 0, mb:mb + len(suffix)])
+        return (_to_host(logits[0, len(suffix) - 1]).numpy(),
+                torch.cat([prefix_kv.to(cfg.dtype), suffix_kv], dim=2))
 
     def _insert_prompt_kv(self, slot: int, prompt: List[int], adapter: int,
                           cached_offset: int):
@@ -787,11 +979,38 @@ class DecodeEngine:
     def recorder_stats(self) -> dict:
         """Flight-recorder counters, and each tenant's SLO burn rate over its
         recent completions ("burn_rates": windowed breach fraction over
-        llm_slo_error_budget, "" for untenanted traffic). ray_tpu reads the
-        rates through `autopilot_signals()` and util.metrics gauges, which
-        the port does not have yet (ROADMAP.md, Queue 1 items 8 and 9)."""
+        llm_slo_error_budget, "" for untenanted traffic). `autopilot_signals()`
+        reads the same rates; ray_tpu also exports them as util.metrics
+        gauges, which the port does not have yet (ROADMAP.md, Queue 1 item 8)."""
         return {**self._recorder.stats(),
                 "burn_rates": self._serve_metrics.burn_rates()}
+
+    def set_tenant_weight(self, tenant: str, weight: float) -> None:
+        """Reshare one tenant's weighted-fair queue weight (the serve
+        autopilot's actuator, and the operator's)."""
+        self._sched.set_tenant_weight(tenant, weight)
+
+    def autopilot_signals(self) -> dict:
+        """The serve autopilot's signal vector: queue depth and occupancy
+        from the scheduler, SLO burn rates from the metrics windows. The
+        batch tenant (`llm_batch_tenant`) is non-SLO load: its queued
+        requests, burn and weight are left out. JAX's version runs under
+        its distsan report-path check, a devtool the port does not have."""
+        st = self._sched.stats()
+        batch = CONFIG.llm_batch_tenant
+        tenants = st.get("tenants") or {}
+        batch_queued = int((tenants.get(batch) or {}).get("queued", 0))
+        online_burns = {t: b for t, b in self._serve_metrics.burn_rates().items()
+                        if t != batch}
+        return {
+            "role": "engine",
+            "queued": max(0, st.get("queue_depth", 0) - batch_queued),
+            "running": (st.get("running", 0) or 0) + (st.get("prefilling", 0) or 0),
+            "burn_rate": max(online_burns.values(), default=0.0),
+            "tenant_burn": {t: b for t, b in online_burns.items() if t},
+            "tenant_weights": {t: info.get("weight", 1.0)
+                               for t, info in tenants.items() if t != batch},
+        }
 
     def request_timing(self, rid: str) -> Optional[dict]:
         """Per-request timing breakdown (the response-metadata payload):
@@ -909,10 +1128,11 @@ class DecodeEngine:
         return self.T
 
     def _attach_kv(self, slot: int, kv: torch.Tensor):
-        """Write a cached KV prefix into slot's cache rows [0, P).
-        kv: [L, 2, P, Hkv, D] on the host, owned by the caller. One H2D copy
-        on the engine's stream; from pageable memory it returns once the
-        rows are staged, so the caller may drop kv afterwards."""
+        """Write a KV prefix into slot's cache rows [0, P), cast to the
+        cache dtype. kv: [L, 2, P, Hkv, D], owned by the caller. From the
+        host it is one H2D copy on the engine's stream, which from pageable
+        memory returns once the rows are staged, so the caller may drop kv
+        afterwards; a kv on the engine's device is copied on the device."""
         kv = kv.to(self.device)
         P = kv.shape[2]
         for i, (ck, cv) in enumerate(self._caches):
@@ -924,8 +1144,11 @@ class DecodeEngine:
         cache-hit request attaches the leased prefix rows; the LAST chunk
         samples the request's first token (the one per-admission host pull),
         feeds the prompt's rows to the prefix cache and activates the
-        slot."""
+        slot. A transferred prefix ("prefilled") is attached instead."""
         req = chunk.request
+        if req.kind == "prefilled":
+            self._exec_attach(req)
+            return
         rec = req.rec
         slot = req.slot
         offset = req.prefilled
@@ -983,6 +1206,56 @@ class DecodeEngine:
             # spec-eligible — the model draft prefills its own cache on the
             # whole prompt; the ngram draft only indexes the ids.
             self._draft.on_admit(slot, list(req.prompt))
+        self._start_slot(req, first)
+
+    def _exec_attach(self, req: Request):
+        """Admission of a transferred prefix (PD disaggregation): write its
+        rows [0, prompt_len) into the slot, sample the first token from the
+        transferred logits (under the constraint's start-state mask) and
+        start the slot. A kv already on the engine's device is copied on the
+        device; host rows cross in one H2D copy. With the prompt's token
+        ids the rows feed the prefix cache and the draft catches up."""
+        slot, prompt_len = req.slot, req.prompt_len
+        kv, req.kv = req.kv, None
+        t_attach = time.time()
+        on_device = isinstance(kv, torch.Tensor) and kv.device == self.device
+        if isinstance(kv, np.ndarray):
+            kv = torch.from_numpy(kv)
+        if kv.is_cuda:
+            # The copy below reads kv on this stream: its memory must not be
+            # reused on the stream it was allocated on until then.
+            kv.record_stream(torch.cuda.current_stream(kv.device))
+        # The bucket JAX pads the attach to; the port writes exactly the rows.
+        bucket = self._bucket(max(kv.shape[2], prompt_len))
+        self._attach_kv(slot, kv[:, :, :prompt_len])
+        self._lens[slot] = prompt_len
+        if req.rec is not None:
+            req.rec.span("pd-attach", t_attach, time.time(), prompt_len=prompt_len,
+                         bucket=bucket, on_device=on_device)
+        first_logits = req.first_logits
+        if isinstance(first_logits, torch.Tensor):
+            first_logits = first_logits.float().cpu().numpy()
+        first_row = np.asarray(first_logits, np.float32)
+        if req.constraint is not None:
+            # The start-state mask a local prefill's first sample gets.
+            first_row = first_row + req.constraint.mask(
+                req.sampling.stop_token_id, budget=req.sampling.max_tokens
+            )
+        first = _sample_host(first_row, req.sampling, self._np_rng)
+        known = bool(req.prompt) and len(req.prompt) >= prompt_len
+        if self._prefix_cache is not None and known:
+            if kv.device.type == "cpu":
+                # Host rows are in the pool's layout already: no read-back.
+                n = (prompt_len // self._prefix_cache.block_size) * self._prefix_cache.block_size
+                if n:
+                    self._prefix_cache.insert(req.prompt[:n], kv, namespace=req.adapter)
+            else:
+                self._insert_prompt_kv(slot, req.prompt[:prompt_len], req.adapter, 0)
+        if self._draft is not None:
+            if known:
+                self._draft.on_admit(slot, list(req.prompt[:prompt_len]))
+            else:
+                self._draft.on_plain_decode(slot)  # no ids, no draft history
         self._start_slot(req, first)
 
     def _start_slot(self, req: Request, first: int):

@@ -6,6 +6,7 @@ any depth of the file (a function body included), fails the test.
 """
 
 import ast
+import inspect
 import pathlib
 
 import pytest
@@ -52,3 +53,20 @@ def test_guard_covers_the_copied_modules():
               "ray_tpu_torch/llm/kvcache/manager.py", "ray_tpu_torch/llm/flight_recorder.py",
               "ray_tpu_torch/llm/adapters.py"}
     assert copies <= ids, sorted(copies - ids)
+
+
+def test_guard_covers_the_pd_handoff():
+    """The files that define the PD handoff and the engine's and server's
+    in-process surface are among the guard's files."""
+    from ray_tpu_torch.llm import LLMServer
+    from ray_tpu_torch.llm._engine import DecodeEngine
+
+    funcs = [DecodeEngine.prefill_detached, DecodeEngine._detached_cold,
+             DecodeEngine._detached_suffix, DecodeEngine.submit_prefilled,
+             DecodeEngine._exec_attach, DecodeEngine.set_tenant_weight,
+             DecodeEngine.autopilot_signals, LLMServer.model_id, LLMServer.cache_stats,
+             LLMServer.scheduler_stats, LLMServer.set_tenant_weight,
+             LLMServer.autopilot_signals]
+    files = {pathlib.Path(inspect.getsourcefile(f)).resolve() for f in funcs}
+    assert files == {ROOT / "ray_tpu_torch/llm/_engine.py", ROOT / "ray_tpu_torch/llm/__init__.py"}
+    assert files <= set(FILES)
