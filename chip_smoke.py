@@ -36,6 +36,17 @@ Phases, each printing one JSON record per line:
            insert reading back only the blocks the cache lacked), then
            the same 4 on an engine without a cache; TTFT, TPOT and timing per
            request, the attach and the insert read-back in ms
+  tiers    the tiered prefix cache on the serve phase's weights, built from
+           the llm_kv_* flags (host pool 160 MiB, device tier 256 MiB, a
+           spill directory capped at 1 GiB): a 1,072-token prompt cold, hit
+           from the host pool (promoting it to the card), from the card,
+           evicted to disk by a second cold prompt, and hit from disk with
+           its head still resident (bf16 blocks stitched back): K1 only on
+           the cold requests, the rows from every tier bit for bit the cold
+           rows, the device hit's rows on the card (no H2D copy), the hits'
+           tokens equal and through the teacher-forced check, no lease left,
+           the spill worker stopped; attach ms per tier (synchronized),
+           TTFT, promotion ms, spill seconds and disk promotion ms
   guided   LLMServer(llama3-8b, the serve phase's weights made again from its
            seed, their sums checked equal) answering a regex,
            a JSON schema and a grammar request beside an unguided one
@@ -46,8 +57,9 @@ Phases, each printing one JSON record per line:
            request's TPOT beside guided slots (multi-step off) and without
   stream   on that server: generate_stream's text and open_stream's tokens
            equal generate's; a guided stream closed after 3 tokens frees its
-           slot within one scheduler iteration (cancel-to-free ms), its
-           record cancelled and its ConstraintState released
+           slot within one scheduler iteration (counted between the engine's
+           receipt of the cancel and the free slot; cancel-to-free ms split
+           there), its record cancelled and its ConstraintState released
   spec     speculative decoding on the serve prompts and weights: a plain
            engine, then the ngram draft (k 6) over the prompts twice, the
            8-layer early-exit draft and the self-draft (k 4 each): every
@@ -99,7 +111,7 @@ The kernel
 launch counts, both kernels', are set to 0 just before each main path (the
 model's forward, the served requests, each configuration's and each remat
 policy's train steps, the prefix phase's cold request, its hits and its
-uncached requests, the guided batch, the stream phase's requests, each
+uncached requests, each tiers-phase request, the guided batch, the stream phase's requests, each
 spec-phase run, each lora-phase batch and its cold/warm requests, the pd
 phase's mono requests, its detached prefills and each of its pair runs) and read
 just after; the kernels line's
@@ -109,7 +121,8 @@ with every path's counts beside them.
 Exits non-zero (and prints no result) without a GPU, without the package
 beside it, or when any phase fails. The only process it starts besides
 itself is nvcc (and nvidia-smi), both waited for; the threads it starts
-(the checkpoint writer, the engines' steppers) are shut down before it ends.
+(the checkpoint writer, the engines' steppers, the spill worker) are shut
+down before it ends.
 """
 
 from __future__ import annotations
@@ -221,8 +234,8 @@ K1_REPEATS = 20  # reruns of K1 on the same inputs, each compared bit for bit
 K1_MAIN_SHAPE = (128, 32, 8, 128, True, "bshd")  # 3 of the 4 served offset-0 chunks
 K1_MAX_SEQ_SHAPE = (2048, 32, 8, 128, True, "bshd")  # the served max_seq, one prompt
 
-PHASES = ("build", "k1", "k2", "head", "model", "serve", "prefix", "guided", "stream", "spec",
-          "lora", "pd", "train", "remat", "fused", "ckpt")
+PHASES = ("build", "k1", "k2", "head", "model", "serve", "prefix", "tiers", "guided", "stream",
+          "spec", "lora", "pd", "train", "remat", "fused", "ckpt")
 
 # The guided phase's specs: (spec, max_tokens). The regex finishes at its
 # accepting dead-end (8 tokens); the schema's integer is unbounded, so
@@ -1154,6 +1167,257 @@ def phase_prefix(cfg, params, margin: float, name: str = "llama3-8b",
     return rec
 
 
+@contextlib.contextmanager
+def _engine_flags(**flags):
+    """The engine module's flag table (`ray_tpu_torch/_config.py`, frozen)
+    with `flags` replaced while the block runs: how a deployment sets the
+    `llm_kv_*` flags in process."""
+    import dataclasses
+
+    from ray_tpu_torch.llm import _engine as engine_mod
+
+    saved = engine_mod.CONFIG
+    engine_mod.CONFIG = dataclasses.replace(saved, **flags)
+    try:
+        yield
+    finally:
+        engine_mod.CONFIG = saved
+
+
+def phase_tiers(cfg, params, margin: float, card: str, name: str = "llama3-8b",
+                device: str = "cuda", seed: int = 6, prefix_len: int = 1024,
+                suffix: int = 48, max_tokens: int = 16, max_seq: int = 2048,
+                host_blocks: int = 80, device_blocks: int = 128,
+                spill_blocks: int = 512) -> dict:
+    """The tiered prefix cache on llama3-8b, over the serve phase's weights:
+    an engine built from the tier flags (budgets in 16-row blocks, 2 MiB
+    each at llama3-8b's width: a host pool of 80, 160 MiB, which holds one
+    1,024-token prefix plus its suffix; a device tier of 128, 256 MiB; a
+    spill directory under the temporary directory, capped at 512, 1 GiB,
+    removed at the end) serves p_a cold, p_a from the host
+    pool (promoting the chain to the card), p_a from the card, p_b cold
+    (whose insert evicts p_a's tail and spills it), and, once the spills are
+    written, p_a from disk (its head still resident: the tail comes back in
+    bf16 and is stitched to it). Then an engine without a cache serves p_a.
+    Gates: K1 32 launches per cold request and none on a hit; the attached
+    rows of every hit equal the cold prefill's rows bit for bit; the device
+    hit's rows were on the card (no H2D copy); the three hits' tokens equal
+    and through the teacher-forced check; one hit from each tier; every
+    pool block in the cache dtype after the disk promotion; no spill
+    dropped; no lease left; the spill worker stopped at shutdown.
+    Reported per tier: the attach ms (synchronized, from the lease's rows
+    to the slot's), TTFT, the promotion ms (host to card, synchronized),
+    the spill seconds and the disk promotion ms."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.llm._engine import DecodeEngine
+    from ray_tpu_torch.llm.kvcache import TieredPrefixCacheManager
+    from ray_tpu_torch.ops.attention import LAUNCHES
+
+    rng = np.random.default_rng(seed)
+    p_a = rng.integers(0, cfg.vocab_size, prefix_len + suffix).tolist()
+    p_b = rng.integers(0, cfg.vocab_size, prefix_len + suffix).tolist()
+    bs = 16
+    block_bytes = cfg.n_layers * 2 * bs * cfg.n_kv_heads * cfg.head_dim * cfg.dtype.itemsize
+    matched = (len(p_a) - 1) // bs * bs  # a hit's rows: the lookup leaves a token
+    spill_dir = tempfile.mkdtemp(prefix="chip_smoke_kv_spill_")
+    with _engine_flags(llm_kv_block_size=bs, llm_prefix_cache_bytes=host_blocks * block_bytes,
+                       llm_kv_device_bytes=device_blocks * block_bytes,
+                       llm_kv_spill_dir=spill_dir, llm_kv_spill_bytes=spill_blocks * block_bytes):
+        eng = DecodeEngine(cfg, params, num_slots=4, max_seq=max_seq, seed=seed,
+                           device=device)
+    cache = eng._prefix_cache
+    if not isinstance(cache, TieredPrefixCacheManager):
+        eng.shutdown()
+        raise RuntimeError(f"the tier flags built {type(cache).__name__}")
+    timings = {"attach": [], "promote_device": [], "promote_disk": []}
+    queued_at, written_at = [], []
+    leased_kv, attach_kv = eng._leased_kv, eng._attach_kv
+    promote_to_device, promote_from_disk = cache._promote_to_device, cache._promote_from_disk
+    enqueue_spill, disk_put, disk_get = cache._enqueue_spill, cache._disk.put, cache._disk.get
+    cache_insert = cache.insert
+    split = {"read_ms": 0.0, "insert_ms": 0.0, "files": 0}
+
+    def timed_leased_kv(lease):
+        _sync(device)
+        timings["attach"].append({"t0": time.perf_counter()})
+        kv, tier = leased_kv(lease)
+        timings["attach"][-1].update(tier=tier, rows_on_card=kv.is_cuda, rows=kv.shape[2])
+        return kv, tier
+
+    def timed_attach_kv(slot, kv):
+        attach_kv(slot, kv)
+        _sync(device)  # the rows have landed
+        rec = timings["attach"][-1]
+        rec["ms"] = (time.perf_counter() - rec.pop("t0")) * 1e3
+
+    def timed_promote_to_device(block_ids):
+        _sync(device)
+        t0 = time.perf_counter()
+        promote_to_device(block_ids)
+        _sync(device)
+        timings["promote_device"].append({"blocks": len(block_ids),
+                                          "ms": (time.perf_counter() - t0) * 1e3})
+
+    def timed_promote_from_disk(token_ids, namespace):
+        with cache._lock:
+            head = len(cache._radix.match(token_ids, namespace))
+        split.update(read_ms=0.0, insert_ms=0.0, files=0)
+        t0 = time.perf_counter()
+        added = promote_from_disk(token_ids, namespace)
+        if added:
+            # The rest of the ms is the concatenation of head and tail.
+            timings["promote_disk"].append({"head_blocks": head, "blocks": added,
+                                            "ms": (time.perf_counter() - t0) * 1e3,
+                                            **split})
+        return added
+
+    def timed_disk_get(key):
+        t0 = time.perf_counter()
+        kv = disk_get(key)
+        split["read_ms"] += (time.perf_counter() - t0) * 1e3
+        split["files"] += kv is not None
+        return kv
+
+    def timed_insert(token_ids, kv, namespace=0):
+        t0 = time.perf_counter()
+        added = cache_insert(token_ids, kv, namespace)
+        split["insert_ms"] += (time.perf_counter() - t0) * 1e3
+        return added
+
+    def timed_enqueue_spill(key, kv):
+        queued_at.append(time.perf_counter())
+        enqueue_spill(key, kv)
+
+    def timed_disk_put(key, kv):
+        written = disk_put(key, kv)
+        written_at.append(time.perf_counter())
+        return written
+
+    eng._leased_kv, eng._attach_kv = timed_leased_kv, timed_attach_kv
+    cache._promote_to_device = timed_promote_to_device
+    cache._promote_from_disk = timed_promote_from_disk
+    cache._enqueue_spill, cache._disk.put = timed_enqueue_spill, timed_disk_put
+    cache._disk.get, cache.insert = timed_disk_get, timed_insert
+    runs, launches, rows_equal, tiers_seen = {}, {}, {}, {}
+    spill = {}
+    try:
+        for tag, prompt in (("cold", p_a), ("host", p_a), ("device", p_a), ("evict", p_b),
+                            ("disk", p_a)):
+            if tag == "disk":
+                # Every block p_b's insert evicted is on disk before p_a's
+                # next lookup; the wait is bounded.
+                want = cache.stats()["evicted_blocks"]
+                t_wait = time.perf_counter()
+                while (cache.stats()["tiers"]["spills"] < want
+                       and time.perf_counter() - t_wait < 120):
+                    time.sleep(0.005)
+                tiers_now = cache.stats()["tiers"]
+                # From the first eviction's queue put to the last commit
+                # (tmp write, fsync, rename), on the spill worker.
+                seconds = max(written_at) - min(queued_at) if written_at else None
+                spill = {"evicted_blocks": want, "spills": tiers_now["spills"],
+                         "spill_mib": tiers_now["spill_bytes"] / 2**20, "seconds": seconds,
+                         "mib_per_s": (tiers_now["spill_bytes"] / 2**20 / seconds
+                                       if seconds else None),
+                         "wait_after_request_s": time.perf_counter() - t_wait,
+                         "disk_mib": tiers_now["disk_bytes"] / 2**20}
+            LAUNCHES.update(flash_fwd=0, flash_bwd=0)
+            runs[tag] = _serve_engine(eng, [prompt], max_tokens, f"tiers-{tag}")[0]
+            launches[tag] = dict(LAUNCHES)
+            tiers_seen[tag] = (eng.last_attach or {}).get("tier") if tag in (
+                "host", "device", "disk") else None
+            slot = next(e[3]["slot"] for e in _events(eng, f"tiers-{tag}-0")
+                        if e[0] == "admitted")
+            with torch.inference_mode():
+                rows = [torch.stack([ck[slot, :matched], cv[slot, :matched]])
+                        for ck, cv in eng._caches]
+            if tag == "cold":
+                cold_rows = rows
+            elif tag != "evict":
+                rows_equal[tag] = all(torch.equal(a, b) for a, b in zip(rows, cold_rows))
+            del rows
+        del cold_rows
+        pool_dtypes = sorted({str(b.kv.dtype) for b in cache._pool._blocks.values()})
+        stats = cache.stats()
+        spans = [e[3].get("tier") for tag in ("host", "device", "disk")
+                 for e in _events(eng, f"tiers-{tag}-0") if e[0] == "cache-attach"]
+        worker = cache._spill_thread
+    finally:
+        eng.shutdown()
+        shutil.rmtree(spill_dir, ignore_errors=True)
+    worker_stopped = (worker is None or not worker.is_alive()) and cache._spill_thread is None
+    leases_active = cache.stats()["leases_active"]
+    del eng, cache
+    _empty_cache(device)
+
+    plain = DecodeEngine(cfg, params, num_slots=4, max_seq=max_seq, seed=seed,
+                         prefix_cache=False, device=device)
+    try:
+        LAUNCHES.update(flash_fwd=0, flash_bwd=0)
+        no_cache = _serve_engine(plain, [p_a], max_tokens, "tiers-plain")[0]
+        launches["no_cache"] = dict(LAUNCHES)
+        hits = [runs[t]["token_ids"] for t in ("host", "device", "disk")]
+        exact, total, worst_gap = _teacher_forced(plain, [p_a] * 3, hits)
+    finally:
+        plain.shutdown()
+    del plain
+    _empty_cache(device)
+
+    attach = {t["tier"]: t for t in timings["attach"]}
+    rec = {
+        "phase": "tiers", "model": name, "card": card, "num_slots": 4, "max_seq": max_seq,
+        "block_size": bs, "block_mib": block_bytes / 2**20,
+        "host_mib": host_blocks * block_bytes / 2**20,
+        "device_mib": device_blocks * block_bytes / 2**20,
+        "spill_cap_mib": spill_blocks * block_bytes / 2**20,
+        "prompt_tokens": len(p_a), "hit_tokens": matched, "max_tokens": max_tokens,
+        "ttft_s": {t: r["ttft_s"] for t, r in runs.items()},
+        "tpot_s": {t: r["tpot_s"] for t, r in runs.items()},
+        "no_cache_ttft_s": no_cache["ttft_s"],
+        "attach": timings["attach"], "promote_device": timings["promote_device"],
+        "promote_disk": timings["promote_disk"], "spill": spill,
+        "last_attach_tiers": tiers_seen, "cache_attach_span_tiers": spans,
+        "attached_rows_equal_cold_rows": rows_equal, "pool_dtypes": pool_dtypes,
+        "prefix_cache_stats": stats, "leases_active_at_end": leases_active,
+        "spill_worker_stopped": worker_stopped,
+        "hit_tokens_equal": hits[0] == hits[1] == hits[2],
+        "hit_tokens_equal_no_cache": sum(int(a == b) for a, b in
+                                         zip(hits[0], no_cache["token_ids"])),
+        "cold_tokens_equal_hits": runs["cold"]["token_ids"] == hits[0],
+        "teacher_forced_exact": exact, "teacher_forced_total": total,
+        "worst_logit_gap": worst_gap, "margin": margin,
+        "launches": launches,
+    }
+    cold_k1 = {"flash_fwd": cfg.n_layers, "flash_bwd": 0}
+    tiers = stats["tiers"]
+    rec["ok"] = (
+        launches["cold"] == launches["evict"] == launches["no_cache"] == cold_k1
+        and all(launches[t] == {"flash_fwd": 0, "flash_bwd": 0}
+                for t in ("host", "device", "disk"))
+        and tiers_seen == {"cold": None, "host": "host", "device": "device",
+                           "evict": None, "disk": "disk"}
+        and spans == ["host", "device", "disk"]
+        and rows_equal == {"host": True, "device": True, "disk": True}
+        and attach.get("device", {}).get("rows_on_card") is True
+        and all(a["rows"] == matched for a in timings["attach"])
+        and tiers["hits_device"] == 1 and tiers["hits_disk"] == 1
+        and tiers["hits_host"] == 1 and tiers["spill_drops"] == 0
+        and spill.get("spills", 0) >= spill.get("evicted_blocks", 1) > 0
+        and len(timings["promote_disk"]) == 1 and timings["promote_disk"][0]["head_blocks"] > 0
+        and pool_dtypes == [str(cfg.dtype)]
+        and rec["hit_tokens_equal"] and worst_gap <= margin
+        and all(len(r["token_ids"]) == max_tokens for r in (*runs.values(), no_cache))
+        and leases_active == 0 and worker_stopped
+    )
+    emit(rec)
+    return rec
+
+
 def _smoke_tokenizer():
     """ByteTokenizer's bytes for ids < 256, so guided specs mask as they do
     under the default tokenizer, and every other id rendered as "<id>", so
@@ -1368,10 +1632,14 @@ def phase_stream(server, seed: int = 4, prompt_len: int = 16, max_tokens: int = 
     (every id rendered by `_smoke_tokenizer`) equals generate's for the same
     greedy prompt, and DecodeEngine.open_stream's tokens equal generate's
     ids; then a guided stream of up to 300 digits is closed after 3 deltas:
-    its slot must be free within one scheduler iteration (cancel-to-free ms
-    at most twice the stream's median gap between tokens), its record
-    cancelled, its ConstraintState released and no record left live. K1
-    launches once per layer per admitted prompt (4)."""
+    its slot must be free within one scheduler iteration (at most one
+    iteration planned, `scheduler_stats()["iterations"]`, between the
+    engine's receipt of the cancel and the slot found free), its record
+    cancelled, its ConstraintState released and no record left live.
+    Reported: cancel-to-free ms from aclose(), split at the engine's
+    receipt of the cancel, beside the median gap between the stream's
+    tokens, and the tokens decoded after the close. K1 launches once per
+    layer per admitted prompt (4)."""
     import numpy as np
 
     from ray_tpu_torch.llm import SamplingParams
@@ -1389,6 +1657,15 @@ def phase_stream(server, seed: int = 4, prompt_len: int = 16, max_tokens: int = 
         return begun[-1]
 
     constraint.begin = recording_begin
+    cancels = []
+    cancel = eng.cancel
+
+    def recording_cancel(request_id):
+        cancels.append({"rid": request_id, "t": time.perf_counter(),
+                        "iterations": eng.scheduler_stats()["iterations"]})
+        return cancel(request_id)
+
+    eng.cancel = recording_cancel
 
     async def scenario():
         whole = await server.generate(prompt, max_tokens=max_tokens)
@@ -1403,10 +1680,15 @@ def phase_stream(server, seed: int = 4, prompt_len: int = 16, max_tokens: int = 
         await gen.aclose()  # the client went away
         while any(s.active for s in eng._sched.slots) and time.perf_counter() - t0 < 30:
             await asyncio.sleep(0.0005)
-        return whole, streamed, parts, times, (time.perf_counter() - t0) * 1e3
+        t_free = time.perf_counter()
+        return (whole, streamed, parts, times, t0, t_free,
+                eng.scheduler_stats()["iterations"])
 
     LAUNCHES.update(flash_fwd=0, flash_bwd=0)
-    whole, streamed, parts, times, cancel_ms = asyncio.run(scenario())
+    try:
+        whole, streamed, parts, times, t0, t_free, iterations_free = asyncio.run(scenario())
+    finally:
+        del eng.cancel
     opened = list(eng.open_stream(prompt, SamplingParams(max_tokens=max_tokens)))
     launches = dict(LAUNCHES)
     constraint.begin = begin
@@ -1414,12 +1696,18 @@ def phase_stream(server, seed: int = 4, prompt_len: int = 16, max_tokens: int = 
     gaps = [b - a for a, b in zip(times, times[1:])]
     step_ms = statistics.median(gaps) * 1e3 if gaps else None
     stats = eng.recorder_stats()
+    closing = next((c for c in cancels if c["rid"] == "stream-close"), None)
+    iterations_to_free = None if closing is None else iterations_free - closing["iterations"]
     rec = {
         "phase": "stream", "prompt_len": prompt_len, "max_tokens": max_tokens,
         "generate_tokens": whole["token_ids"], "stream_text_equal": "".join(streamed) == whole["text"],
         "open_stream_equal": opened == whole["token_ids"],
         "stream_deltas": len(streamed), "closed_after": parts,
-        "cancel_to_free_ms": cancel_ms, "stream_token_gap_ms": step_ms,
+        "cancel_to_free_ms": (t_free - t0) * 1e3,
+        "aclose_to_cancel_ms": None if closing is None else (closing["t"] - t0) * 1e3,
+        "cancel_to_free_engine_ms": None if closing is None else (t_free - closing["t"]) * 1e3,
+        "iterations_cancel_to_free": iterations_to_free,
+        "stream_token_gaps_ms": [g * 1e3 for g in gaps], "stream_token_gap_ms": step_ms,
         "closed_record_tokens": timing["tokens"] if timing else None,
         "closed_state_released": bool(begun) and all(st.released for st in begun),
         "recorder": stats, "launches": launches,
@@ -1429,7 +1717,7 @@ def phase_stream(server, seed: int = 4, prompt_len: int = 16, max_tokens: int = 
                  and len(whole["token_ids"]) == max_tokens
                  and all(p.isdigit() for p in parts)
                  and not any(s.active for s in eng._sched.slots)
-                 and step_ms is not None and cancel_ms <= 2 * step_ms
+                 and iterations_to_free is not None and iterations_to_free <= 1
                  and rec["closed_state_released"] and len(begun) == 1
                  and stats["live"] == 0 and stats["cancelled"] >= 1
                  and launches == rec["launches_expected"])
@@ -2782,15 +3070,18 @@ def main(argv=None) -> int:
     shapes.install()
     shapes.tag = "model"
     model = phase_model() if "model" in phases else None
-    serve = prefix = guided = stream = spec = lora = pd = serve_fingerprint = None
-    serving = {"serve", "prefix", "guided", "stream", "spec", "lora", "pd"} & set(phases)
+    serve = prefix = tiers = guided = stream = spec = lora = pd = serve_fingerprint = None
+    serving = {"serve", "prefix", "tiers", "guided", "stream", "spec", "lora", "pd"} & set(phases)
     margin = (model["tolerance"] if model else phase_model()["tolerance"]) if serving else None
-    if "serve" in phases or "prefix" in phases:
+    if {"serve", "prefix", "tiers"} & set(phases):
         shapes.tag = "serve"
         serve, weights = phase_serve(margin=margin)
         if "prefix" in phases:
             shapes.tag = "prefix"
             prefix = phase_prefix(*weights, margin=margin)
+        if "tiers" in phases:
+            shapes.tag = "tiers"
+            tiers = phase_tiers(*weights, margin=margin, card=card["nvidia_smi"])
         serve_fingerprint = _fingerprint(weights[1])
         del weights
         gc.collect()
@@ -2842,8 +3133,8 @@ def main(argv=None) -> int:
                        "unlisted": [sh for sh in mine if tuple(sh) in unlisted]}
         lora_shapes["ok"] = bool(mine) and not lora_shapes["unlisted"]
         emit(lora_shapes)
-    records = [r for r in (*k1, *k2, *head, model, serve, prefix, guided, stream, spec, lora,
-                           lora_shapes, pd, *train, remat, fused, ckpt, shape_rec)
+    records = [r for r in (*k1, *k2, *head, model, serve, prefix, tiers, guided, stream, spec,
+                           lora, lora_shapes, pd, *train, remat, fused, ckpt, shape_rec)
                if r is not None]
     failed = [r.get("phase") for r in records if not r["ok"]]
     if build is not None and build["spill_bytes"]:
@@ -2860,6 +3151,7 @@ def main(argv=None) -> int:
     k2_rec = k2[K2_CASES.index(K2_MAIN_SHAPE)]
     by_path = {"model_llama3-8b": model["launches"], "serve_llama3-8b": serve["launches"]}
     by_path.update({f"prefix_{p}_llama3-8b": c for p, c in prefix["launches"].items()})
+    by_path.update({f"tiers_{p}_llama3-8b": c for p, c in tiers["launches"].items()})
     by_path["guided_llama3-8b"] = guided["launches"]
     by_path["stream_llama3-8b"] = stream["launches"]
     by_path.update({f"spec_{p}_llama3-8b": c for p, c in spec["launches"].items()})

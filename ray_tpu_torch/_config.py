@@ -33,6 +33,20 @@ class Config:
     # host bytes for the per-engine paged KV prefix cache; repeated prompt
     # prefixes attach cached KV and prefill suffix-only (0 disables)
     llm_prefix_cache_bytes: int = 32 << 20
+    # device-resident hot-tier byte budget of the tiered prefix cache: the
+    # hottest blocks keep a device copy so warm attaches skip the
+    # host->device leg entirely; LRU device copies drop back to the host tier
+    # past the budget (0 disables the hot tier)
+    llm_kv_device_bytes: int = 0
+    # local directory for the disk spill tier of the tiered prefix cache:
+    # host-tier eviction spills blocks here (atomic tmp+fsync+rename commits
+    # — torn spills are invisible) instead of discarding them, and later
+    # lookups promote spilled chains back through the host pool (empty
+    # disables spilling)
+    llm_kv_spill_dir: str = ""
+    # byte cap on the disk spill tier; the oldest committed spill files are
+    # unlinked past it (0 = unbounded)
+    llm_kv_spill_bytes: int = 256 << 20
     # device bytes for the engine's pageable LoRA adapter table: device slots
     # = budget // per-adapter slot bytes; registered adapters stay host-side
     # and page in on demand (LRU eviction of unpinned adapters); 0 sizes the

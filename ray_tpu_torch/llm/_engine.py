@@ -19,7 +19,11 @@ As JAX's engine does by default, it builds a paged KV prefix cache
 (`llm/flight_recorder.py`). A prefix-cache hit attaches exactly its cached
 rows [0, cached_offset) — JAX pads them to a bucket because it compiles one
 attach program per bucket — and prefills the suffix from that offset through
-the masked route.
+the masked route. With `llm_kv_device_bytes` or `llm_kv_spill_dir` set the
+cache is the tiered hierarchy (`llm/kvcache/tiers.py`): a hit whose every
+block holds a device copy attaches from the card with no host->device copy,
+and host eviction spills to disk, from where a later lookup promotes the
+chain back.
 
 Guided decoding (`submit(constraint=...)`, `llm/generate/`) adds a
 constraint's host mask to the admission sample and to each host sampling
@@ -49,7 +53,7 @@ does; a prefix-cache hit prefills only the suffix through the masked route.
 The detached rows are exactly [0, prompt_len) (JAX pads them to a bucket).
 
 Not in this slice (it raises): tensor parallelism. Not ported yet: the
-cache's device and disk tiers, the DeviceChannel transport.
+DeviceChannel transport.
 """
 
 from __future__ import annotations
@@ -70,7 +74,7 @@ from ray_tpu_torch._config import CONFIG
 from ray_tpu_torch.checkpoint import restore
 from ray_tpu_torch.llm.adapters import AdapterCache, UnknownAdapterError
 from ray_tpu_torch.llm.flight_recorder import FlightRecorder, ServeMetrics
-from ray_tpu_torch.llm.kvcache import PrefixCacheManager
+from ray_tpu_torch.llm.kvcache import PrefixCacheManager, TieredPrefixCacheManager
 from ray_tpu_torch.llm.scheduler.scheduler import (
     EngineOverloadedError,
     Request,
@@ -350,14 +354,27 @@ class DecodeEngine:
         # prefix index. A repeated prompt prefix attaches its cached KV and
         # prefills only the suffix. prefix_cache=None (or True) builds one
         # from the config flags; False disables; a PrefixCacheManager
-        # instance is used as-is.
+        # instance is used as-is. With llm_kv_device_bytes / llm_kv_spill_dir
+        # set the cache is the TIERED hierarchy: a device hot tier above the
+        # host pool (hot attaches are zero-H2D) and an async disk spill tier
+        # below it.
         if prefix_cache is None or prefix_cache is True:
             prefix_cache = None
             if CONFIG.llm_prefix_cache_bytes > 0:
-                prefix_cache = PrefixCacheManager(
-                    CONFIG.llm_kv_block_size, CONFIG.llm_prefix_cache_bytes,
-                    name=f"engine-{id(self):x}",
-                )
+                if CONFIG.llm_kv_device_bytes > 0 or CONFIG.llm_kv_spill_dir:
+                    prefix_cache = TieredPrefixCacheManager(
+                        CONFIG.llm_kv_block_size, CONFIG.llm_prefix_cache_bytes,
+                        name=f"engine-{id(self):x}",
+                        device_bytes=CONFIG.llm_kv_device_bytes,
+                        to_device=self._kv_block_to_device,
+                        spill_dir=CONFIG.llm_kv_spill_dir,
+                        spill_bytes=CONFIG.llm_kv_spill_bytes,
+                    )
+                else:
+                    prefix_cache = PrefixCacheManager(
+                        CONFIG.llm_kv_block_size, CONFIG.llm_prefix_cache_bytes,
+                        name=f"engine-{id(self):x}",
+                    )
         self._prefix_cache = prefix_cache or None
         if max_queue_depth is None:
             max_queue_depth = CONFIG.llm_max_queue_depth
@@ -927,9 +944,32 @@ class DecodeEngine:
         blocks = rows.view(L, 2, stop - first, bs, H, D).permute(2, 0, 1, 3, 4, 5)
         return [blk.clone() for blk in blocks.contiguous().cpu().unbind(0)]
 
+    def _kv_block_to_device(self, host_kv: torch.Tensor) -> torch.Tensor:
+        """Hot-tier promotion copy: one [L, 2, bs, Hkv, D] host block onto
+        this engine's device in the cache dtype, on the engine's stream,
+        where every attach that reads it runs. From pageable memory the copy
+        returns once the block is staged, so the host block may be evicted
+        afterwards. On the CPU it is the host tensor itself."""
+        with contextlib.ExitStack() as stack:
+            if self._stream is not None:
+                stack.enter_context(torch.cuda.stream(self._stream))
+            return host_kv.to(self.device, self.cfg.dtype)
+
+    def _leased_kv(self, lease):
+        """A lease's prefix rows from the best tier, and the tier that served
+        them: the tiered cache's device copies when every block holds one
+        (zero H2D on attach), else the host blocks. A lease stamped "device"
+        whose copies were dropped mid-lease is served by the host."""
+        device_kv = getattr(self._prefix_cache, "device_kv", None)
+        kv = None if device_kv is None else device_kv(lease)
+        if kv is not None:
+            return kv, lease.tier
+        return lease.kv(), "host" if lease.tier == "device" else lease.tier
+
     def prefix_cache_stats(self) -> Optional[dict]:
-        """Hit/eviction/residency counters of the paged KV prefix cache (None
-        when the cache is disabled)."""
+        """Hit/eviction/residency counters of the paged KV prefix cache,
+        with the per-tier breakdown ("tiers") of a tiered cache (None when
+        the cache is disabled)."""
         if self._prefix_cache is None:
             return None
         return self._prefix_cache.stats()
@@ -954,7 +994,8 @@ class DecodeEngine:
         if self._prefix_cache is None:
             return 0
         adapter = self._adapter_index(lora)
-        return self._prefix_cache.insert(token_ids, kv, namespace=adapter)
+        insert = getattr(self._prefix_cache, "insert_remote", self._prefix_cache.insert)
+        return insert(token_ids, kv, namespace=adapter)
 
     def scheduler_stats(self) -> dict:
         """Iteration-level scheduler occupancy (per-phase token counters,
@@ -1114,11 +1155,15 @@ class DecodeEngine:
 
     def shutdown(self):
         """Idempotent. Stops the stepper, then fails every request that is
-        still active or queued."""
+        still active or queued; a tiered cache writes its queued spills and
+        stops its spill worker."""
         self._stop = True
         if self._thread is not None:
             self._thread.join(timeout=30)
         self._fail_all()
+        close_cache = getattr(self._prefix_cache, "close", None)
+        if close_cache is not None:
+            close_cache()
 
     # -- stepper -----------------------------------------------------------
     def _bucket(self, n: int) -> int:
@@ -1160,16 +1205,18 @@ class DecodeEngine:
             # an attach failure the stepper dies and the scheduler drain
             # would release it too, but only after req.lease was cleared
             # here, so the release must not depend on the happy path.
-            tier = req.lease.tier
             try:
-                # lease.kv() is a new tensor: the copy reads no pool memory.
-                self._attach_kv(slot, req.lease.kv())
+                # The host form is a new tensor, and device copies are
+                # never written, so releasing the lease cannot change the
+                # rows the copy reads.
+                kv, tier = self._leased_kv(req.lease)
+                self._attach_kv(slot, kv)
             finally:
                 req.lease.release()
                 req.lease = None
             if rec is not None:
-                # Host-stamped: the span covers the host concatenation and
-                # the staged H2D copy.
+                # Host-stamped: the span covers the concatenation and the
+                # staged H2D copy (none from the device tier).
                 rec.span("cache-attach", t_attach, time.time(),
                          cached_tokens=req.cached_offset, tier=tier)
             self.last_attach = {"tier": tier, "cached_tokens": req.cached_offset}

@@ -58,8 +58,9 @@ class PrefixLease:
         self.block_ids = block_ids
         self.matched_tokens = matched_tokens
         self.namespace = namespace
-        # Which tier served this hit: always "host" (the port has the host
-        # pool only); the engine's cache-attach flight event carries it.
+        # Which tier served this hit: "host" for the flat manager; the
+        # tiered manager (tiers.py) stamps "device" / "disk", and the
+        # engine's cache-attach flight event carries it.
         self.tier = "host"
         self._released = False
 

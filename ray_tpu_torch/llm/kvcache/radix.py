@@ -61,6 +61,20 @@ class RadixIndex:
             root.namespace = namespace
         return root
 
+    def chain_of(self, node: RadixNode) -> Tuple[int, List[int]]:
+        """(namespace, token ids root..node) — the identity of the prefix a
+        node's block caches; the spill tier's content address is derived
+        from exactly this (tiers.py)."""
+        chunks: List[Chunk] = []
+        n = node
+        while n.parent is not None:
+            chunks.append(n.key)
+            n = n.parent
+        tokens: List[int] = []
+        for chunk in reversed(chunks):
+            tokens.extend(chunk)
+        return n.namespace, tokens
+
     def match(self, token_ids: Sequence[int], namespace: int = 0) -> List[RadixNode]:
         """Longest chain of nodes covering a whole-block prefix of token_ids."""
         node = self._roots.get(namespace)
