@@ -105,12 +105,23 @@ Phases, each printing one JSON record per line:
            3 runs, restored bit for bit into a fresh state, step 3 resumed from
            it, and LLMServer warm-started from the checkpoint serving 2 greedy
            requests token-identical to an engine over the in-memory weights
+  mesh     training over a mesh of one rank (NCCL, a FileStore rendezvous;
+           one card cannot hold two ranks): llama3-1b built on the meta
+           device, sharded with FSDP2 by init_state over create_mesh({"fsdp":
+           1}), its weights drawn leaf by leaf from the train phase's seed,
+           3 steps ([4, 2048], full remat, fused cross-entropy) beside the
+           same steps on one device: loss and grad_norm within 1e-5
+           relative (bit for bit reported), every weight a DTensor with the
+           rules' placement, K1 32 and K2 16 launches a step, the step and
+           params saved by process 0 of 1 and restored onto the mesh bit for
+           bit; step time against the one-device step, idle share, peak
+           memory of the init and the steps, the save's blocked ms
 Then a summary (failed phases; kernel_over_library at the shapes the kernels
 are judged by), the kernels line and, last, {"ok": true, "device": {...}}.
 The kernel
 launch counts, both kernels', are set to 0 just before each main path (the
 model's forward, the served requests, each configuration's and each remat
-policy's train steps, the prefix phase's cold request, its hits and its
+policy's train steps, the mesh phase's steps, the prefix phase's cold request, its hits and its
 uncached requests, each tiers-phase request, the guided batch, the stream phase's requests, each
 spec-phase run, each lora-phase batch and its cold/warm requests, the pd
 phase's mono requests, its detached prefills and each of its pair runs) and read
@@ -121,8 +132,8 @@ with every path's counts beside them.
 Exits non-zero (and prints no result) without a GPU, without the package
 beside it, or when any phase fails. The only process it starts besides
 itself is nvcc (and nvidia-smi), both waited for; the threads it starts
-(the checkpoint writer, the engines' steppers, the spill worker) are shut
-down before it ends.
+(the checkpoint writers, the engines' steppers, the spill worker) are shut
+down, and the mesh phase's process group destroyed, before it ends.
 """
 
 from __future__ import annotations
@@ -235,7 +246,7 @@ K1_MAIN_SHAPE = (128, 32, 8, 128, True, "bshd")  # 3 of the 4 served offset-0 ch
 K1_MAX_SEQ_SHAPE = (2048, 32, 8, 128, True, "bshd")  # the served max_seq, one prompt
 
 PHASES = ("build", "k1", "k2", "head", "model", "serve", "prefix", "tiers", "guided", "stream",
-          "spec", "lora", "pd", "train", "remat", "fused", "ckpt")
+          "spec", "lora", "pd", "train", "remat", "fused", "ckpt", "mesh")
 
 # The guided phase's specs: (spec, max_tokens). The regex finishes at its
 # accepting dead-end (8 tokens); the schema's integer is unbounded, so
@@ -2354,17 +2365,29 @@ def _device_profile(fn, reps: int = 5) -> dict:
         torch.cuda.synchronize()
     by_name: dict = {}
     n_kernels = 0
+    spans = []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             n_kernels += 1
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            spans.append((e.time_range.start, e.time_range.end))
     busy_ms = sum(by_name.values()) or None
+    # Kernels on several streams (FSDP2's copies) overlap: their union is
+    # the time the device was busy at all.
+    union_us, reach = 0.0, None
+    for start, end in sorted(spans):
+        if reach is None or start > reach:
+            union_us, reach = union_us + (end - start), end
+        elif end > reach:
+            union_us, reach = union_us + (end - reach), end
     by_class: dict = {}
     for name, ms in by_name.items():
         by_class[_kernel_class(name)] = by_class.get(_kernel_class(name), 0.0) + ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+            "device_busy_union_ms": union_us / 1e3 if spans else None,
+            "idle_share_union": 1.0 - union_us / 1e3 / wall_ms if spans else None,
             "device_kernels": n_kernels, "by_class_ms": by_class,
             "top_ms": [[name[:80], ms] for name, ms in top]}
 
@@ -3008,6 +3031,179 @@ def phase_ckpt(name: str = "gpt2-125m", batch: int = 8, seq: int = 1024, seed: i
     return rec
 
 
+# The mesh phase's gate: its loss and grad_norm at each step against the
+# one-device step's (the same arithmetic: FSDP2 over one rank gathers and
+# reduces by copying; the norm sums its squares in another order).
+MESH_REL_TOL = 1e-5
+
+
+def phase_mesh(name: str = "llama3-1b", batch: int = 4, seq: int = 2048, steps: int = 3,
+               seed: int = 0, device: str = "cuda") -> dict:
+    """Training over a mesh on one card: one rank (NCCL refuses two ranks
+    on one device) in a process group rendezvousing through a FileStore in
+    a temporary directory, `create_mesh({"fsdp": 1})`, and `name` built on
+    the meta device and sharded with FSDP2 by `init_state`, its weights
+    drawn leaf by leaf from the train phase's seed (the train phase's
+    weights, then its batch from the same generator); full remat, fused
+    cross-entropy, AdamW as the train phase. Beside it the same `steps` on
+    one device (the train phase's path, its model freed first). Gates: loss
+    and grad_norm at every step within MESH_REL_TOL relative of the
+    one-device step's (bit for bit reported); every weight a DTensor with
+    the rules' placement; K1 twice and K2 once per layer per step; a save
+    of the step and the params by process 0 of 1 (AsyncCheckpointWriter,
+    its blocked ms) committed, and restored onto the mesh bit for bit.
+    Reports step times, peak memory and a profiled step's device idle
+    share (from the union of kernel intervals: FSDP2 copies on streams of
+    its own) beside the one-device steps', and the init's peak memory."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch import checkpoint as ckpt
+    from ray_tpu_torch.models.transformer import Transformer, get_config, param_axes
+    from ray_tpu_torch.ops.attention import LAUNCHES
+    from ray_tpu_torch.parallel.mesh import create_mesh, logical_to_placements
+    from ray_tpu_torch.parallel.optim import adamw
+    from ray_tpu_torch.parallel.spmd import build_train_step, init_state
+
+    cfg = get_config(name, remat=True, remat_policy="full")
+
+    def optimizer():
+        return adamw(3e-4, weight_decay=0.01, mu_dtype=torch.bfloat16)
+
+    def run_steps(step_fn, state, data):
+        losses, norms, times = [], [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, data)
+            losses.append(float(metrics["loss"]))  # synchronizes
+            times.append(time.perf_counter() - t0)
+            norms.append(float(metrics["grad_norm"]))
+        return state, losses, norms, times
+
+    # The one-device steps: the train phase's model, weights and batch.
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = Transformer(cfg, device=device, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device=device)
+    data = {"tokens": tokens, "targets": tokens}
+    opt = optimizer()
+    state, _ = init_state(model, cfg, opt)
+    step_fn, _ = build_train_step(model, opt)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    state, ref_losses, ref_norms, ref_times = run_steps(step_fn, state, data)
+    ref_peak_gb = ref_profile = None
+    if device == "cuda":
+        ref_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ref_profile = _device_profile(lambda: step_fn(state, data), reps=2)
+    del state, step_fn, opt, model
+    gc.collect()
+    _empty_cache(device)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    store = dist.FileStore(os.path.join(tmp, "store"), 1)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo", store=store, rank=0,
+                            world_size=1)
+    writer = ckpt.AsyncCheckpointWriter()
+    try:
+        mesh = create_mesh({"fsdp": 1}, device=device)
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=device).manual_seed(seed)
+        model = Transformer(cfg, device="meta")
+        opt = optimizer()
+        t0 = time.perf_counter()
+        state, shardings = init_state(model, cfg, opt, mesh, rng=gen)
+        _sync(device)
+        init_s = time.perf_counter() - t0
+        init_peak_gb = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else None
+        tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device=device)
+        step_fn, place = build_train_step(model, opt, mesh)
+        local = place({"tokens": tokens, "targets": tokens})
+        placed = {}
+        for path, _ in model.named_tree_params():
+            p = state.params
+            for key in path:
+                p = p[key]
+            placed["/".join(path)] = isinstance(p, DTensor) and tuple(p.placements) == \
+                logical_to_placements(param_axes(path), p.device_mesh)
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.update(flash_fwd=0, flash_bwd=0)
+        state, losses, norms, times = run_steps(step_fn, state, local)
+        launches = dict(LAUNCHES)
+        peak_gb = profile = None
+        if device == "cuda":
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            profile = _device_profile(lambda: step_fn(state, local), reps=2)
+        # Save the step and the params (process 0 of 1), then restore onto
+        # the mesh with the state's placements and compare bit for bit.
+        path = os.path.join(tmp, "checkpoint")
+        tree = {"step": np.asarray(state.step, np.int32), "params": state.params}
+        t0 = time.perf_counter()
+        writer.save(path, tree, process_index=0, process_count=1)
+        blocked_s = time.perf_counter() - t0
+        writer.wait_until_finished()
+        write_s = time.perf_counter() - t0
+        nbytes = sum(p.to_local().numel() * p.to_local().element_size()
+                     for p in _tree_leaves_any(state.params))
+        want = {k: v for k, v in shardings.items() if k.startswith("params/")}
+        t0 = time.perf_counter()
+        restored = ckpt.restore(path, mesh=mesh, placements=want)
+        _sync(device)
+        restore_s = time.perf_counter() - t0
+        names = [f"params/{n}" for n in _leaf_names(state.params)]
+        pairs = list(zip(names, _tree_leaves_any(restored["params"]),
+                         _tree_leaves_any(state.params)))
+        bitwise = (int(restored["step"]) == state.step and len(pairs) == len(placed) and all(
+            isinstance(a, DTensor) and tuple(a.placements) == want[n]
+            and torch.equal(a.to_local(), b.detach().to_local()) for n, a, b in pairs))
+        manifest = ckpt.load_manifest(path)
+        del restored, pairs, state, step_fn, opt, model, local, mesh
+    finally:
+        writer.shutdown()
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    _empty_cache(device)
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    per_layer = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd": cfg.n_layers}
+    expected = {k: v * steps for k, v in per_layer.items()}
+    step_ms, ref_ms = (statistics.median(t[1:] or t) * 1e3 for t in (times, ref_times))
+    rec = {
+        "phase": "mesh", "model": name, "layers": cfg.n_layers, "tokens": [batch, seq],
+        "mesh": {"fsdp": 1}, "ranks": 1, "backend": "nccl" if device == "cuda" else "gloo",
+        "remat_policy": cfg.remat_policy, "init_s": init_s, "init_peak_memory_gb": init_peak_gb,
+        "losses": losses, "grad_norms": norms, "one_device": {
+            "losses": ref_losses, "grad_norms": ref_norms, "step_s": ref_times,
+            "steady_step_ms": ref_ms, "peak_memory_gb": ref_peak_gb, "profile": ref_profile},
+        "loss_max_rel": max(rel(a, b) for a, b in zip(losses, ref_losses)),
+        "grad_norm_max_rel": max(rel(a, b) for a, b in zip(norms, ref_norms)),
+        "bitwise_losses": losses == ref_losses, "bitwise_grad_norms": norms == ref_norms,
+        "rel_tol": MESH_REL_TOL, "weights_placed": sum(placed.values()),
+        "weights": len(placed), "step_s": times, "steady_step_ms": step_ms,
+        "step_ms_over_one_device": step_ms / ref_ms,
+        "launches": launches, "launches_expected": expected, "peak_memory_gb": peak_gb,
+        "profile": profile, "ckpt": {
+            "bytes": nbytes, "blocked_ms": blocked_s * 1e3, "write_s": write_s,
+            "restore_s": restore_s, "process_count": manifest["process_count"],
+            "restored_bitwise": bitwise},
+    }
+    rec["ok"] = (rec["loss_max_rel"] <= MESH_REL_TOL and rec["grad_norm_max_rel"] <= MESH_REL_TOL
+                 and all(placed.values()) and bitwise and manifest["process_count"] == 1
+                 and all(math.isfinite(x) for x in losses + norms)
+                 and (device != "cuda" or launches == expected))
+    emit(rec)
+    return rec
+
+
 def _k1_record(k1: list, case) -> dict:
     """K1's record at (S, H, Hkv, D, causal, layout) with B = 1."""
     return next(r for r in k1 if r["shape"]["B"] == 1 and tuple(r["shape"][key] for key in (
@@ -3120,6 +3316,8 @@ def main(argv=None) -> int:
     fused = phase_fused() if "fused" in phases else None
     shapes.tag = "ckpt"
     ckpt = phase_ckpt() if "ckpt" in phases else None
+    shapes.tag = "mesh"
+    mesh = phase_mesh() if "mesh" in phases else None
     shapes.uninstall()
     shape_rec, _ = phase_shapes(shapes, k1, k2)
     lora_shapes = None
@@ -3134,7 +3332,7 @@ def main(argv=None) -> int:
         lora_shapes["ok"] = bool(mine) and not lora_shapes["unlisted"]
         emit(lora_shapes)
     records = [r for r in (*k1, *k2, *head, model, serve, prefix, tiers, guided, stream, spec,
-                           lora, lora_shapes, pd, *train, remat, fused, ckpt, shape_rec)
+                           lora, lora_shapes, pd, *train, remat, fused, ckpt, mesh, shape_rec)
                if r is not None]
     failed = [r.get("phase") for r in records if not r["ok"]]
     if build is not None and build["spill_bytes"]:
@@ -3160,6 +3358,7 @@ def main(argv=None) -> int:
     by_path.update({f"train_{r['model']}": r["launches"] for r in train})
     by_path.update({f"remat_{p}_llama3-1b": c for p, c in remat["launches"].items()})
     by_path["fused_llama3-1b"] = fused["launches"]
+    by_path["mesh_llama3-1b"] = mesh["launches"]
     kernels = {"kernels": [{
         "name": "flash_fwd", "route": "cuda",
         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",

@@ -13,6 +13,12 @@ The snapshot has to be complete before `save` returns: the port's optimizer
 updates parameters and moments in place, so a copy still in flight when the
 next step runs would hold a mix of two steps.
 
+Over a mesh every rank's writer snapshots and persists that rank's own
+shards and spec; the committing process (rank 0) then waits, on its writer
+thread and not the step loop, at most `commit_timeout_s` for every spec
+before writing the manifest. A rank that dies mid-save never writes its
+spec, the commit times out, and the directory stays garbage.
+
 JAX's writer also reports metrics and trace spans through the runtime's
 registry; the port has no runtime yet (ROADMAP.md).
 """
@@ -27,6 +33,9 @@ from ray_tpu_torch.checkpoint import _format
 
 # Saves snapshotted but not yet persisted before `save` blocks.
 INFLIGHT = 2
+# How long the committing process waits for every process's spec
+# (ray_tpu's train_ckpt_commit_timeout_s).
+COMMIT_TIMEOUT_S = 120.0
 
 
 class AsyncCheckpointWriter:
@@ -37,7 +46,8 @@ class AsyncCheckpointWriter:
     before trusting the latest directory to be committed.
     """
 
-    def __init__(self):
+    def __init__(self, *, commit_timeout_s: float = COMMIT_TIMEOUT_S):
+        self._commit_timeout_s = commit_timeout_s
         self._queue: "queue.Queue[Optional[dict]]" = queue.Queue(maxsize=INFLIGHT)
         self._idle = threading.Event()
         self._idle.set()
@@ -48,19 +58,25 @@ class AsyncCheckpointWriter:
 
     # ------------------------------------------------------------------ save
 
-    def save(self, path: str, tree):
-        """Snapshot ``tree`` (one batch of device-to-host copies, synchronised
-        before returning) and enqueue persistence and commit.
+    def save(self, path: str, tree, *, process_index: Optional[int] = None,
+             process_count: Optional[int] = None, commit: Optional[bool] = None):
+        """Snapshot this process's shards of ``tree`` (one batch of
+        device-to-host copies, synchronised before returning) and enqueue
+        persistence and, on the committer, the commit.
 
-        Raises any error a PREVIOUS background job hit, so failures surface
-        at the next step boundary instead of silently.
+        The process index and count default to torch.distributed's rank and
+        world size; ``commit=None`` commits iff this is process 0. Raises
+        any error a PREVIOUS background job hit, so failures surface at the
+        next step boundary instead of silently.
         """
         if self.error is not None:
             raise RuntimeError(
                 f"previous async checkpoint save failed: {self.error!r}"
             ) from self.error
-        encoded, plan = _format.snapshot(tree)
-        job = {"path": path, "encoded": encoded, "plan": plan}
+        me, count = _format._process_args(process_index, process_count)
+        encoded, plan = _format.snapshot(tree, process_index=me, process_count=count)
+        job = {"path": path, "encoded": encoded, "plan": plan, "process_index": me,
+               "process_count": count, "commit": me == 0 if commit is None else commit}
         with self._lock:
             self._pending += 1
             self._idle.clear()
@@ -96,13 +112,17 @@ class AsyncCheckpointWriter:
                         self._idle.set()
 
     def _run_job(self, job: dict):
-        _format.write_snapshot(job["path"], job["encoded"], job["plan"])
-        _format.commit(job["path"])
+        _format.write_snapshot(job["path"], job["encoded"], job["plan"],
+                               process_index=job["process_index"])
+        if job["commit"]:
+            _format.commit(job["path"], process_count=job["process_count"],
+                           timeout_s=self._commit_timeout_s)
 
     # --------------------------------------------------------------- barrier
 
     def wait_until_finished(self, timeout: Optional[float] = None) -> bool:
-        """Block until every enqueued save has been persisted and committed.
+        """Block until every enqueued save has been persisted (and committed,
+        on the committer).
         Returns False on timeout. Raises if any
         background job failed."""
         done = self._idle.wait(timeout)

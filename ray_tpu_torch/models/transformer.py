@@ -268,6 +268,79 @@ def _truncated_normal(shape, std, dtype, device, generator):
     return (w * (std / _TRUNC_STD)).to(dtype)
 
 
+# Each weight's logical dimension names, by its flax module name: JAX's
+# `with_logical_partitioning` annotations (ray_tpu/models/transformer.py:169
+# q/k/v, :193 and :307 o, :210 the norms, :239 and :362 the MLP and the
+# fused qkv and gate_up, :425 the embedding, :506 lm_head). The mesh's
+# rules map them to placements (`parallel/mesh.py`).
+PARAM_AXES: Dict[str, Tuple[Optional[str], ...]] = {
+    "embedding": ("vocab", "embed"),
+    "lm_head": ("embed", "vocab"),
+    "q": ("embed", "heads", "head_dim"),
+    "k": ("embed", "kv_heads", "head_dim"),
+    "v": ("embed", "kv_heads", "head_dim"),
+    "qkv": ("embed", "heads", "head_dim"),
+    "o": ("heads", "head_dim", "embed"),
+    "gate": ("embed", "mlp"),
+    "up": ("embed", "mlp"),
+    "gate_up": ("embed", "mlp"),
+    "down": ("mlp", "embed"),
+    "attn_norm": ("embed",),
+    "mlp_norm": ("embed",),
+    "final_norm": ("embed",),
+}
+
+
+def param_axes(path: Tuple[str, ...]) -> Tuple[Optional[str], ...]:
+    """The logical axes of the weight at a flax path, e.g.
+    ("layer_0", "attn", "q", "kernel") -> ("embed", "heads", "head_dim")."""
+    return PARAM_AXES[path[0] if len(path) == 1 else path[-2]]
+
+
+def param_shapes(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], Tuple[int, ...], object]]:
+    """(flax path, shape, initializer) of every weight, in the order
+    `init_params` draws them; the initializer is a std (normal), a fan-in
+    (truncated lecun normal) or None (ones, an f32 norm scale)."""
+    E, H, Hkv, D, F = cfg.hidden, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.mlp_dim
+    out = [(("embedding",), (cfg.vocab_size, E), ("normal", 0.02))]
+    for i in range(cfg.n_layers):
+        layer = f"layer_{i}"
+        if cfg.fused_qkv:
+            mats = [("attn", "qkv", (E, H + 2 * Hkv, D), E), ("mlp", "gate_up", (E, 2 * F), E)]
+        else:
+            mats = [("attn", "q", (E, H, D), E), ("attn", "k", (E, Hkv, D), E),
+                    ("attn", "v", (E, Hkv, D), E), ("mlp", "gate", (E, F), E),
+                    ("mlp", "up", (E, F), E)]
+        mats += [("attn", "o", (H, D, E), H * D), ("mlp", "down", (F, E), F)]
+        out += [((layer, n), (E,), None) for n in ("attn_norm", "mlp_norm")]
+        out += [((layer, mod, n, "kernel"), shape, ("lecun", fan)) for mod, n, shape, fan in mats]
+    out.append((("final_norm",), (E,), None))
+    if not cfg.tie_embeddings:
+        out.append((("lm_head", "kernel"), (E, cfg.vocab_size), ("lecun", E)))
+    return [((*p, "scale") if init is None else p, shape, init) for p, shape, init in out]
+
+
+def draw_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device=None) -> Iterator[Tuple[Tuple[str, ...], torch.Tensor]]:
+    """(flax path, tensor) of every weight, drawn one at a time from
+    `generator` on `device` in `param_shapes`' order; on the "meta"
+    device, uninitialised tensors without storage."""
+    dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
+    g = None
+    if dev.type != "meta":
+        g = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
+    for path, shape, init in param_shapes(cfg):
+        dtype = torch.float32 if init is None else cfg.param_dtype
+        if dev.type == "meta":
+            yield path, torch.empty(shape, dtype=dtype, device=dev)
+        elif init is None:
+            yield path, torch.ones(shape, dtype=dtype, device=dev)
+        elif init[0] == "normal":
+            yield path, _normal(shape, init[1], dtype, dev, g)
+        else:
+            yield path, _truncated_normal(shape, 1.0 / math.sqrt(init[1]), dtype, dev, g)
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device=None) -> ParamTree:
     """Random weights in the flax tree layout (unscanned `layer_{i}`; with
@@ -278,37 +351,15 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     normal(0.02), matrices flax's lecun-normal over their fan-in, a normal
     truncated at two standard deviations, norm scales one),
     drawn from `generator`, a torch.Generator on `device` (seeded with 0 when
-    not given). JAX's PRNG gives other numbers from the same seed, so tests
-    hand both packages the same numpy weights instead."""
-    dev = resolve_device(device)
-    g = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
-    wd = cfg.param_dtype
-    E, H, Hkv, D, F = cfg.hidden, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.mlp_dim
-
-    def dense(shape, fan_in):
-        return {"kernel": _truncated_normal(shape, 1.0 / math.sqrt(fan_in), wd, dev, g)}
-
-    def norm():
-        return {"scale": torch.ones(E, dtype=torch.float32, device=dev)}
-
-    params: ParamTree = {"embedding": _normal((cfg.vocab_size, E), 0.02, wd, dev, g)}
-    for i in range(cfg.n_layers):
-        if cfg.fused_qkv:
-            attn = {"qkv": dense((E, H + 2 * Hkv, D), E)}
-            mlp = {"gate_up": dense((E, 2 * F), E)}
-        else:
-            attn = {"q": dense((E, H, D), E), "k": dense((E, Hkv, D), E),
-                    "v": dense((E, Hkv, D), E)}
-            mlp = {"gate": dense((E, F), E), "up": dense((E, F), E)}
-        params[f"layer_{i}"] = {
-            "attn_norm": norm(),
-            "attn": dict(attn, o=dense((H, D, E), H * D)),
-            "mlp_norm": norm(),
-            "mlp": dict(mlp, down=dense((F, E), F)),
-        }
-    params["final_norm"] = norm()
-    if not cfg.tie_embeddings:
-        params["lm_head"] = dense((E, cfg.vocab_size), E)
+    not given), in `param_shapes`' order. JAX's PRNG gives other numbers
+    from the same seed, so tests hand both packages the same numpy weights
+    instead. On the "meta" device the tensors have no storage."""
+    params: ParamTree = {}
+    for path, tensor in draw_params(cfg, generator, device):
+        node = params
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = tensor
     return params
 
 
@@ -462,14 +513,16 @@ class Transformer(nn.Module):
     """The model over a flax-layout param tree (`init_params` or
     `convert.params_from_jax`); random weights from `generator` when `params`
     is None. The modules hold the tree's tensors, not copies, so a second
-    Transformer (another attention route) or the engine can share them."""
+    Transformer (another attention route) or the engine can share them.
+    `device="meta"` builds it without storage, for `spmd.init_state` to
+    shard over a mesh and fill one leaf at a time."""
 
     def __init__(self, cfg: ModelConfig, params: Optional[ParamTree] = None, *,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = torch.device("meta") if str(device) == "meta" else resolve_device(device)
         if params is None:
             params = init_params(cfg, generator, self.device)
         self.embedding = nn.Parameter(params["embedding"])
@@ -599,15 +652,20 @@ def _matmul_f32(a: torch.Tensor, b: torch.Tensor,
     return a.float() @ b.to(a.dtype).float()
 
 
-def cross_entropy_loss(logits, targets, mask=None):
-    """Mean next-token loss. logits:[B,S,V] float32; targets:[B,S] int."""
+def cross_entropy_loss(logits, targets, mask=None, *, denominator=None):
+    """Mean next-token loss. logits:[B,S,V] float32; targets:[B,S] int.
+    `denominator` (a rank's share of a batch split over a mesh: the global
+    count of its tokens, or of its mask's ones) replaces the local count,
+    so the ranks' values sum to the global mean."""
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     nll = logz - gold
     if mask is not None:
         mask = mask.to(nll.dtype)
-        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
-    return nll.mean()
+        if denominator is None:
+            denominator = mask.sum().clamp_min(1.0)
+        return (nll * mask).sum() / denominator
+    return nll.mean() if denominator is None else nll.sum() / denominator
 
 
 def _chunk_nll_sum(h, w, w_low, t, m):
@@ -617,7 +675,8 @@ def _chunk_nll_sum(h, w, w_low, t, m):
 
 
 def fused_cross_entropy_loss(hidden, table, targets, mask=None, *, chunk: int = 256,
-                             contract_dim: int = 1, compute_dtype=torch.bfloat16):
+                             contract_dim: int = 1, compute_dtype=torch.bfloat16,
+                             denominator=None):
     """Chunked head matmul + cross-entropy that never holds the full logits.
 
     The port of ray_tpu's `fused_cross_entropy_loss`: the sequence is cut
@@ -627,7 +686,8 @@ def fused_cross_entropy_loss(hidden, table, targets, mask=None, *, chunk: int = 
     hidden: [B,S,E] (post final norm); table: the tied embedding [V,E]
     (contract_dim=1) or an untied lm_head kernel [E,V] (contract_dim=0);
     targets: [B,S] int. The head is the model's: `compute_dtype` operands,
-    f32 sums and result."""
+    f32 sums and result. `denominator` replaces the local count, as in
+    `cross_entropy_loss`."""
     B, S, E = hidden.shape
     c = math.gcd(S, chunk)
     if contract_dim == 1:
@@ -648,6 +708,8 @@ def fused_cross_entropy_loss(hidden, table, targets, mask=None, *, chunk: int = 
         m = None if mask is None else mask[:, s0:s0 + c]
         total = total + checkpoint(_chunk_nll_sum, h, w, w_low, targets[:, s0:s0 + c], m,
                                    use_reentrant=False)
+    if denominator is not None:
+        return total / denominator
     count = (torch.tensor(float(B * S), device=hidden.device) if mask is None
              else mask.sum())
     return total / count.clamp_min(1.0)

@@ -19,6 +19,11 @@ so this module does the update itself with `torch._foreach_*` ops.
 PyTorch idiom: `update_(grads, state, params)` applies the step to `params`
 and `state` in place (JAX returns new trees; the port's train step mutates
 the model's own parameters, as `donate=True` lets XLA reuse their buffers).
+
+Over a mesh the leaves are DTensors (FSDP2's sharded parameters, their
+gradients, and moments made like them): the update is elementwise, so it
+runs on each rank's local shards with no gather, and `global_norm` sums
+the squares of the shards each rank owns in one all-reduce.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
+
+from ray_tpu_torch.parallel.mesh import is_dtensor
 
 ParamTree = Dict[str, Any]
 
@@ -92,8 +99,8 @@ class AdamW:
         bc2 = self._bias_correction(self.b2, state.count)
         # Every leaf in one pass of foreach ops; the f32 temporaries peak at
         # about 2.5 times the params' size.
-        p, g = tree_leaves(params), tree_leaves(grads)
-        m, n = tree_leaves(state.mu), tree_leaves(state.nu)
+        p, g = _locals(tree_leaves(params)), _locals(tree_leaves(grads))
+        m, n = _locals(tree_leaves(state.mu)), _locals(tree_leaves(state.nu))
         if not (len(p) == len(g) == len(m) == len(n)):
             raise ValueError("grads, params and optimizer state have different trees")
         b1, b2 = self.b1, self.b2
@@ -138,7 +145,33 @@ def adamw(learning_rate: Union[float, Callable[[int], float]], b1: float = 0.9,
     return AdamW(learning_rate, b1, b2, eps, eps_root, mu_dtype, weight_decay)
 
 
+def _locals(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Each DTensor's local shard (a view: updates write the DTensor), other
+    tensors as they are."""
+    return [t.to_local() if is_dtensor(t) else t for t in tensors]
+
+
 def global_norm(tensors) -> torch.Tensor:
-    """The L2 norm over every element of every tensor (optax.global_norm)."""
+    """The L2 norm over every element of every tensor (optax.global_norm).
+    DTensors (whose mesh spans every rank) count each distinct slice once:
+    a rank adds the squares of a shard only where its coordinate is 0 on
+    every dimension the shard is replicated over, and one all-reduce sums
+    the ranks' parts; the norm is then the same on every rank."""
     leaves = tree_leaves(tensors) if isinstance(tensors, dict) else list(tensors)
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(leaves)))
+    if not any(is_dtensor(t) for t in leaves):
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(leaves)))
+    import torch.distributed as dist
+
+    owned = []
+    for t in leaves:
+        coord = t.device_mesh.get_coordinate()
+        if t.device_mesh.size() != dist.get_world_size():
+            raise ValueError("global_norm: a DTensor's mesh does not span every rank")
+        if all(c == 0 for c, p in zip(coord, t.placements) if not p.is_shard()):
+            owned.append(t.to_local())
+    device = _locals(leaves[:1])[0].device
+    squares = torch.zeros((), dtype=torch.float32, device=device)
+    if owned:
+        squares = torch.stack(torch._foreach_norm(owned)).float().square().sum()
+    dist.all_reduce(squares)
+    return squares.sqrt()

@@ -1,8 +1,9 @@
 """The port imports nothing of the JAX package or of JAX.
 
-Every module of `ray_tpu_torch/` and `chip_smoke.py` is parsed with `ast`;
-an import of `ray_tpu` (not `ray_tpu_torch`), `jax`, `flax` or `optax`, at
-any depth of the file (a function body included), fails the test.
+Every module of `ray_tpu_torch/`, `chip_smoke.py` and `chip_mesh.py` is
+parsed with `ast`; an import of `ray_tpu` (not `ray_tpu_torch`), `jax`,
+`flax` or `optax`, at any depth of the file (a function body included),
+fails the test.
 """
 
 import ast
@@ -13,7 +14,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("ray_tpu", "jax", "flax", "optax")
-FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                          ROOT / "chip_mesh.py"]
 
 
 def _imported(tree):
@@ -70,3 +72,45 @@ def test_guard_covers_the_pd_handoff():
     files = {pathlib.Path(inspect.getsourcefile(f)).resolve() for f in funcs}
     assert files == {ROOT / "ray_tpu_torch/llm/_engine.py", ROOT / "ray_tpu_torch/llm/__init__.py"}
     assert files <= set(FILES)
+
+
+def test_guard_covers_the_mesh_and_checkpoint_modules():
+    """The modules of training over a mesh and of the multi-process
+    checkpoint are among the guard's files."""
+    mark = next(m for m in test_no_jax_package_import.pytestmark if m.name == "parametrize")
+    ids = {mark.kwargs["ids"](p) for p in mark.args[1]}
+    mesh_files = {"ray_tpu_torch/parallel/mesh.py", "ray_tpu_torch/parallel/spmd.py",
+                  "ray_tpu_torch/parallel/optim.py", "ray_tpu_torch/checkpoint/_format.py",
+                  "ray_tpu_torch/checkpoint/_restore.py", "ray_tpu_torch/checkpoint/_writer.py"}
+    assert mesh_files <= ids, sorted(mesh_files - ids)
+
+
+# The functions of tests/test_torch_fsdp.py that its worker processes run.
+FSDP_WORKER_FUNCS = ("_local_bits", "_train_four", "_resume_two", "_worker", "_loaded_modules",
+                     "_nest", "_flat", "_bits")
+
+
+def test_fsdp_worker_imports_no_jax_package():
+    """The worker entry of tests/test_torch_fsdp.py: its module-level
+    imports and the functions the workers run import nothing forbidden,
+    and run as a script (as the workers are) it loads no jax, flax, optax
+    or ray_tpu module."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    path = ROOT / "tests" / "test_torch_fsdp.py"
+    tree = ast.parse(path.read_text(), filename=str(path))
+    top = [node for node in tree.body if isinstance(node, (ast.Import, ast.ImportFrom))]
+    funcs = [node for node in tree.body
+             if isinstance(node, ast.FunctionDef) and node.name in FSDP_WORKER_FUNCS]
+    assert {f.name for f in funcs} == set(FSDP_WORKER_FUNCS)
+    bad = [(line, pkg) for node in top + funcs for line, pkg in _imported(
+        ast.Module(body=[node], type_ignores=[])) if pkg in FORBIDDEN]
+    assert not bad, f"the fsdp worker imports {bad}"
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, str(path), "modules"], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
