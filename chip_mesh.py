@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Train the PyTorch port over a mesh of several GPUs, one process per GPU.
+"""Train and serve the PyTorch port over several GPUs, one process per GPU.
 
     python3 chip_mesh.py                        # 4 GPUs, create_mesh({"dp": 2, "fsdp": 2})
     python3 chip_mesh.py --device cpu --model test-tiny --seq 32   # rehearsal over gloo
+    python3 chip_mesh.py --mode serve           # 4 GPUs: llama3-8b at tp=1, 2 and 4
+    python3 chip_mesh.py --mode serve --device cpu --model test-tiny --seq 64   # its rehearsal
 
 `chip_smoke.py` runs a mesh of one rank, all one card can hold. This script
 runs `--ranks` ranks (one GPU each, NCCL; or CPU processes over gloo),
@@ -32,9 +34,34 @@ reported, not gated: Adam moves a weight whose gradient is near its eps
 (1e-8) by about lr * sign(g), so the sums' order shows in the next steps'
 weights (4 H100s: loss 4e-6, grad_norm 1.7e-4 relative by step 3). Reported: step times against the reference's,
 peak memory per rank, a profiled step's device idle share on rank 0, the
-save's blocked ms. Prints JSON records; the last line is {"ok": ..., "device":
-{...}}. Exits non-zero on a failed gate or when the GPUs are fewer than the
-ranks; workers outliving the run's limit are killed.
+save's blocked ms.
+
+`--mode serve` runs tensor-parallel serving instead. In this process, on
+GPU 0: chip_smoke's model phase gives the teacher-forced margin, then the
+reference `LLMServer` at tp=1 (`--model`, random bf16 weights from `--seed`,
+4 slots, max_seq `--seq`) answers four prompts together (20, 100, 255 and
+300 tokens; 5, 10, 20 and 30 on the CPU), 32 tokens each, and its weights
+stay for the checks. Then, for tp=2 and tp=4, that many worker processes
+(`--rank r`) each build `LLMServer(LLMConfig(..., tp=N))` over NCCL (each
+draws only its shards, leaf by leaf), rank 0 answers the same prompts, and
+every rank shuts down. Gates per degree: every token the teacher-forced
+argmax of the tp=1 weights or within the margin; K1 once per layer per rank
+for each prompt's offset-0 chunk; each rank's weights and KV the bytes of
+its shards under `param_spec` (about 1/tp of tp=1's); each rank's peak while
+the server is built at most those bytes plus one whole leaf's draw; each
+rank's `memory_allocated` back at its level before the server after
+`shutdown`. The tp=2 ranks then take a follower fault: a 2-layer cut of the
+model at tp=2, whose rank 1 raises in its decode step before its
+collectives, so rank 0 waits in one (over NCCL until its watcher aborts
+it); gate: rank 0's request ends with rank 1's error within
+FAULT_DEADLINE_S, and both ranks' threads end. Reported: TTFT, TPOT, a
+decode step's and a prefill chunk's wall and device ms on rank 0
+(torch.profiler) and its idle share, the load peak, peak memory, the
+fault's seconds.
+
+Prints JSON records; the last line is {"ok": ..., "device": {...}}. Exits
+non-zero on a failed gate or when the GPUs are fewer than the ranks; workers
+outliving the run's limit are killed.
 """
 
 from __future__ import annotations
@@ -56,18 +83,23 @@ RUN_LIMIT_S = 420
 
 def _args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--mode", default="train", choices=("train", "serve"))
     parser.add_argument("--ranks", type=int, default=4)
     parser.add_argument("--mesh", default="dp=2,fsdp=2",
                         help="axis=size,... for create_mesh")
-    parser.add_argument("--model", default="llama3-1b")
+    parser.add_argument("--model", default=None,
+                        help="llama3-1b (train) or llama3-8b (serve) by default")
     parser.add_argument("--batch", type=int, default=8, help="global rows")
-    parser.add_argument("--seq", type=int, default=2048)
+    parser.add_argument("--seq", type=int, default=2048, help="train: tokens a row; serve: max_seq")
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     parser.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--dir", default=None, help=argparse.SUPPRESS)
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    if args.model is None:
+        args.model = "llama3-8b" if args.mode == "serve" else "llama3-1b"
+    return args
 
 
 def _axes(spec: str) -> dict:
@@ -243,34 +275,304 @@ def _worker(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
-    args = _args(argv)
-    if args.rank is not None:
-        return _worker(args)
+# -- serving over a tensor-parallel group --------------------------------------
+
+SERVE_SLOTS = 4
+SERVE_TOKENS = 32  # per reply
+TP_DEGREES = (2, 4)
+# The f32 (CPU) rehearsal's margin: plain and flash routes agree there to
+# rounding, so chip_smoke's margin (twice their bf16 distance from f32) is 0.
+F32_MARGIN = 1e-4
+# The prompts' lengths: the serve phase's on the card, short ones in the
+# CPU rehearsal.
+SERVE_LENGTHS = {"cuda": (20, 100, 255, 300), "cpu": (5, 10, 20, 30)}
+# Seconds within which a follower's fault must fail rank 0's request (the
+# groups' own timeout is GROUP_TIMEOUT_S, 300 s).
+FAULT_DEADLINE_S = 60.0
+# Bytes a one-leaf draw may hold beyond the shards, per element of the
+# largest leaf: the f32 truncated-normal draw, its f32 scaled copy and the
+# cast to the model's dtype; plus 64 MiB of small allocations.
+DRAW_BYTES_PER_ELEMENT = 10
+LOAD_SLACK_BYTES = 64 << 20
+
+
+def _serve_config(args, tp: int, device):
+    from ray_tpu_torch.llm import LLMConfig
+
+    return LLMConfig(model_id=args.model, num_slots=SERVE_SLOTS, max_seq=args.seq,
+                     seed=args.seed, tp=tp, device=str(device))
+
+
+def _prompts(args, vocab: int) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(args.seed)
+    return [rng.integers(0, vocab, n).tolist() for n in SERVE_LENGTHS[args.device]]
+
+
+def _serve(server, prompts, max_tokens: int) -> list:
+    import asyncio
+
+    async def run():
+        return await asyncio.gather(*(server.generate(p, max_tokens=max_tokens)
+                                      for p in prompts))
+
+    return asyncio.run(run())
+
+
+def _replies(results) -> dict:
+    return {"token_ids": [r["token_ids"] for r in results],
+            "ttft_s": [r["ttft_s"] for r in results],
+            "tpot_s": [(r["latency_s"] - r["ttft_s"]) / max(1, len(r["token_ids"]) - 1)
+                       for r in results],
+            "latency_s": [r["latency_s"] for r in results]}
+
+
+def _profile_engine(eng, prefill_len: int, device) -> dict:
+    """A decode step over every slot (`_decode_logits`: the forward, the
+    logits gathered to rank 0 and pulled to the host; the write gate off)
+    and an offset-0 prefill chunk, each through the engine's op channel, so
+    a TP engine's followers run them too. torch.profiler on the card; the
+    host clock alone on the CPU."""
+    import numpy as np
+
+    B, bucket = eng.B, eng._bucket(prefill_len)
+    last, lens = np.zeros(B, np.int64), np.full(B, 400, np.int64)
+    gate, tokens = np.zeros(B, bool), np.ones((1, bucket), np.int64)
+
+    def decode():
+        eng._op("_decode_logits", last, lens, gate)
+
+    def prefill():
+        eng._op("_prefill_at", tokens, 0, 0, bucket, 0)
+
     import torch
 
-    if args.device == "cuda" and (not torch.cuda.is_available()
-                                  or torch.cuda.device_count() < args.ranks):
-        print(f"chip_mesh: {args.ranks} GPUs needed", file=sys.stderr)
-        return 2
-    if args.device == "cuda":
-        from chip_smoke import phase_card
+    with torch.inference_mode():
+        if device.type == "cuda":
+            from chip_smoke import _device_profile
 
-        card = phase_card()
+            return {"decode_step": dict(_device_profile(decode), host=_host_ops(decode)),
+                    "prefill_chunk": dict(_device_profile(prefill), bucket=bucket,
+                                          host=_host_ops(prefill))}
+        out = {}
+        for name, fn in (("decode_step", decode), ("prefill_chunk", prefill)):
+            fn()
+            t0 = time.perf_counter()
+            fn()
+            out[name] = {"wall_ms": (time.perf_counter() - t0) * 1e3}
+        return out
+
+
+def _host_ops(fn) -> dict:
+    """Where rank 0's host time of one call goes: torch.profiler's self CPU
+    time by op (the profiler's own cost included, so read it as shares),
+    the collectives' part (c10d: NCCL's all-reduces and gathers, gloo's
+    announcement) and the ten largest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((a.key, a.self_cpu_time_total / 1e3, a.count) for a in prof.key_averages()),
+                  key=lambda r: -r[1])
+    return {"self_cpu_ms": sum(ms for _, ms, _ in rows),
+            "collectives_ms": sum(ms for key, ms, _ in rows
+                                  if any(w in key for w in ("c10d", "nccl", "gloo"))),
+            "collective_calls": sum(n for key, _, n in rows if key.startswith("c10d::")),
+            "top": [[key[:60], ms, n] for key, ms, n in rows[:10]]}
+
+
+def _tree_bytes(tree) -> int:
+    from ray_tpu_torch.llm.tp import per_device_bytes
+
+    return per_device_bytes(tree)
+
+
+def _expected_bytes(cfg, tp: int, max_seq: int) -> int:
+    """The bytes of one rank's shards under param_spec (matrices in the
+    model's dtype, norm scales f32) plus its KV pool."""
+    from ray_tpu_torch.llm.tp import kv_cache_sharding, param_spec
+    from ray_tpu_torch.models.transformer import param_shapes
+
+    total = 0
+    for path, shape, init in param_shapes(cfg):
+        n = math.prod(shape)
+        if param_spec(path, shape, tp) is not None:
+            n //= tp
+        total += n * (4 if init is None else cfg.dtype.itemsize)
+    heads = cfg.n_kv_heads // tp if kv_cache_sharding(tp, cfg.n_kv_heads) else cfg.n_kv_heads
+    return total + 2 * cfg.n_layers * SERVE_SLOTS * max_seq * heads * cfg.head_dim \
+        * cfg.dtype.itemsize
+
+
+def _draw_bytes(cfg) -> int:
+    """What drawing the largest leaf whole may hold beyond the shards."""
+    from ray_tpu_torch.models.transformer import param_shapes
+
+    return DRAW_BYTES_PER_ELEMENT * max(math.prod(shape) for _, shape, _ in param_shapes(cfg))
+
+
+def _allocated(device):
+    """Bytes the caching allocator holds for tensors on `device`, less the
+    cuBLAS workspaces it keeps for each thread's handle (dropped first: the
+    stepper's and the follower's threads make their own), None on the CPU."""
+    import torch
+
+    if device.type != "cuda":
+        return None
+    torch.cuda.synchronize(device)
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    return torch.cuda.memory_allocated(device)
+
+
+def _serve_worker(args) -> int:
+    """One rank of a tp=--ranks server: its record to <dir>/serve_<tp>_<r>.json."""
+    import datetime
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.llm import LLMServer
+    from ray_tpu_torch.ops.attention import CALLS, LAUNCHES
+
+    rank, tp = args.rank, args.ranks
+    device = _device(args, rank)
+    store = dist.FileStore(os.path.join(args.dir, f"store_tp{tp}"), tp)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo", store=store,
+                            rank=rank, world_size=tp,
+                            timeout=datetime.timedelta(seconds=RUN_LIMIT_S // 2))
+    rec = {"rank": rank, "tp": tp}
+    try:
+        # Host barriers of this script, beside the engine's own groups.
+        sync = dist.new_group(backend="gloo")
+        rec["memory_before"] = _allocated(device)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        server = LLMServer(_serve_config(args, tp, device))
+        _sync(device)
+        rec["load_s"] = time.perf_counter() - t0
+        eng, cfg = server._engine, server._cfg
+        if device.type == "cuda":
+            rec["load_peak_bytes"] = torch.cuda.max_memory_allocated(device)
+        rec["weights_bytes"] = _tree_bytes(eng.params)
+        rec["kv_bytes"] = _tree_bytes(eng._caches)
+        rec["expected_bytes"] = _expected_bytes(cfg, tp, args.seq)
+        rec["draw_bytes"] = _draw_bytes(cfg)
+        prompts = _prompts(args, cfg.vocab_size)
+        if rank == 0:
+            _serve(server, [prompts[0][:8]], 2)  # warm-up: allocator, cuBLAS, NCCL
+        dist.barrier(group=sync)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        LAUNCHES.update(flash_fwd=0, flash_bwd=0)
+        CALLS.update(flash_fwd=0, flash_bwd=0)
+        dist.barrier(group=sync)
+        if rank == 0:
+            t0 = time.perf_counter()
+            results = _serve(server, prompts, SERVE_TOKENS)
+            rec["wall_s"] = time.perf_counter() - t0
+            rec.update(_replies(results))
+            rec["timing"] = [r["timing"] for r in results]
+        dist.barrier(group=sync)
+        rec["launches"], rec["calls"] = dict(LAUNCHES), dict(CALLS)
+        if device.type == "cuda":
+            rec["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+        if rank == 0:
+            rec["profile"] = _profile_engine(eng, 128, device)
+        dist.barrier(group=sync)
+        import asyncio
+
+        asyncio.run(server.shutdown())
+        asyncio.run(server.shutdown())
+        rec["freed"] = eng.params is None and eng._caches == [] and eng._kv_pool.freed
+        del server, eng
+        gc.collect()
+        rec["memory_after"] = _allocated(device)
+        dist.barrier(group=sync)
+        with open(os.path.join(args.dir, f"serve_{tp}_{rank}.json"), "w") as f:
+            json.dump(rec, f)
+        if tp == 2:
+            _follower_fault(args, rank, device, sync)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _follower_fault(args, rank: int, device, sync) -> None:
+    """A 2-layer cut of the model at tp=2 whose rank 1 raises in its decode
+    step before any of its collectives, so rank 0 waits in one: over NCCL
+    until its watcher aborts it. Each rank's record to
+    <dir>/fault_<r>.json; a rank still waiting at FAULT_DEADLINE_S writes
+    its record and exits at once instead of hanging its teardown."""
+    import dataclasses
+    import threading
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.llm import LLMConfig, load_model
+    from ray_tpu_torch.llm._engine import DecodeEngine, SamplingParams
+    from ray_tpu_torch.models.transformer import get_config
+
+    small = dataclasses.replace(get_config(args.model), n_layers=2)
+    cfg, params = load_model(LLMConfig(model_id=args.model, model_config=small, seed=args.seed,
+                                       tp=2, device=str(device)))
+    eng = DecodeEngine(cfg, params, num_slots=2, max_seq=256, tp=2, device=str(device))
+    del params
+    if rank == 1:
+        def boom(*_):
+            raise ValueError("injected follower fault")
+
+        eng._decode_logits = eng._decode_multi = boom
+    dist.barrier(group=sync)
+    rec = {"rank": rank}
+    path = os.path.join(args.dir, f"fault_{rank}.json")
+    if rank == 0:
+        got, done = [], threading.Event()
+
+        def cb(tok, fin):
+            got.append(tok)
+            if fin:
+                done.set()
+
+        t0 = time.perf_counter()
+        eng.submit(list(range(1, 21)), SamplingParams(max_tokens=8), cb)
+        rec.update(ended=done.wait(FAULT_DEADLINE_S), seconds=time.perf_counter() - t0,
+                   tokens=got, error=repr(eng.error))
+        if not rec["ended"]:
+            with open(path, "w") as f:
+                json.dump(rec, f)
+            os._exit(3)
     else:
-        card = {"device": "cpu", "count": 0}
-    axes = _axes(args.mesh)
-    blocks = math.prod(axes.get(a, 1) for a in ("dp", "fsdp"))
-    ref = _reference(args, blocks)
-    _emit({"phase": "reference", **ref})
-    tmp = tempfile.mkdtemp(prefix="chip_mesh_")
+        eng._thread.join(FAULT_DEADLINE_S)
+        if eng._thread.is_alive():
+            rec["ended"] = False
+            with open(path, "w") as f:
+                json.dump(rec, f)
+            os._exit(3)
+    eng.shutdown()
+    eng.shutdown()
+    rec.update(thread_alive=eng._thread.is_alive(), watcher_alive=eng._tp._watcher.is_alive(),
+               freed=eng._kv_pool.freed)
+    with open(path, "w") as f:
+        json.dump(rec, f)
+
+
+def _launch(args, ranks: int, tmp: str) -> tuple:
+    """Start `ranks` workers (this file, --rank r) and wait for them within
+    the run's limit: (exit codes, their records)."""
+    given = sys.argv[1:] if args.argv is None else list(args.argv)
+    t0 = time.monotonic()
     procs = []
     try:
-        t0 = time.monotonic()
-        for rank in range(args.ranks):
-            given = sys.argv[1:] if argv is None else list(argv)
-            cmd = [sys.executable, os.path.abspath(__file__), *given, "--rank", str(rank),
-                   "--dir", tmp]
+        for rank in range(ranks):
+            cmd = [sys.executable, os.path.abspath(__file__), *given, "--ranks", str(ranks),
+                   "--rank", str(rank), "--dir", tmp]
             procs.append(subprocess.Popen(cmd))
         codes = []
         for proc in procs:
@@ -278,15 +580,154 @@ def main(argv=None) -> int:
                 codes.append(proc.wait(timeout=max(0.0, t0 + RUN_LIMIT_S - time.monotonic())))
             except subprocess.TimeoutExpired:
                 codes.append(None)
-        ranks = []
-        for rank in range(args.ranks):
-            path = os.path.join(tmp, f"rank_{rank}.json")
-            ranks.append(json.load(open(path)) if os.path.exists(path) else None)
     finally:
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+    return codes
+
+
+def _serve_main(args, card) -> int:
+    """The tp=1 reference here, then each degree's workers; the gates."""
+    import gc
+
+    import torch
+
+    from ray_tpu_torch.llm import LLMServer
+    from ray_tpu_torch.ops.attention import CALLS, LAUNCHES
+
+    device = _device(args, 0)
+    if device.type == "cuda":
+        from chip_smoke import phase_model
+
+        margin = phase_model(args.model, seed=args.seed)["tolerance"]
+    else:
+        margin = F32_MARGIN
+    from chip_smoke import _teacher_forced
+
+    mem0 = torch.cuda.memory_allocated(device) if device.type == "cuda" else None
+    server = LLMServer(_serve_config(args, 1, device))
+    eng, cfg = server._engine, server._cfg
+    prompts = _prompts(args, cfg.vocab_size)
+    _serve(server, [prompts[0][:8]], 2)
+    LAUNCHES.update(flash_fwd=0, flash_bwd=0)
+    CALLS.update(flash_fwd=0, flash_bwd=0)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    results = _serve(server, prompts, SERVE_TOKENS)
+    ref = {"phase": "serve_tp1", "model": args.model, "wall_s": time.perf_counter() - t0,
+           **_replies(results), "launches": dict(LAUNCHES), "calls": dict(CALLS),
+           "weights_bytes": _tree_bytes(eng.params), "kv_bytes": _tree_bytes(eng._caches),
+           "peak_memory_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                              if device.type == "cuda" else None),
+           "memory_before": mem0}
+    ref["profile"] = _profile_engine(eng, 128, device)
+    import asyncio
+
+    asyncio.run(server.shutdown())
+    ref["teacher_forced"] = _teacher_forced(eng, prompts, ref["token_ids"])
+    _emit(ref)
+    del server
+    gc.collect()
+    total = ref["weights_bytes"] + ref["kv_bytes"]
+    expected_k1 = cfg.n_layers * len(prompts)
+    ok = ref["teacher_forced"][2] <= margin
+    records = []
+    for tp in TP_DEGREES:
+        tmp = tempfile.mkdtemp(prefix="chip_mesh_serve_")
+        try:
+            codes = _launch(args, tp, tmp)
+            ranks, faults = [], []
+            for rank in range(tp):
+                for name, out in ((f"serve_{tp}_{rank}.json", ranks), (f"fault_{rank}.json", faults)):
+                    path = os.path.join(tmp, name)
+                    out.append(json.load(open(path)) if os.path.exists(path) else None)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        rec = {"phase": f"serve_tp{tp}", "model": args.model, "tp": tp, "codes": codes,
+               "margin": margin, "per_rank": ranks}
+        if tp == 2:
+            rec["follower_fault"] = faults
+        good = all(c == 0 for c in codes) and all(r is not None for r in ranks)
+        if good:
+            lead = ranks[0]
+            rec["teacher_forced"] = _teacher_forced(eng, prompts, lead["token_ids"])
+            rec["tokens_equal_tp1"] = lead["token_ids"] == ref["token_ids"]
+            rec["bytes_over_tp1"] = [(r["weights_bytes"] + r["kv_bytes"]) / total for r in ranks]
+            if device.type == "cuda":
+                rec["load_peak_over_tp1"] = [(r["load_peak_bytes"] - r["memory_before"]) / total
+                                             for r in ranks]
+            count = "launches" if device.type == "cuda" else "calls"
+            rec["gates"] = {
+                "tokens": rec["teacher_forced"][2] <= margin
+                and all(len(t) == SERVE_TOKENS for t in lead["token_ids"]),
+                "k1_per_layer_per_rank": all(
+                    r[count] == {"flash_fwd": expected_k1, "flash_bwd": 0} for r in ranks),
+                "bytes": all(r["weights_bytes"] + r["kv_bytes"] == r["expected_bytes"]
+                             for r in ranks),
+                "load_peak": device.type != "cuda" or all(
+                    r["load_peak_bytes"] - r["memory_before"]
+                    <= r["expected_bytes"] + r["draw_bytes"] + LOAD_SLACK_BYTES for r in ranks),
+                "freed": all(r["freed"] for r in ranks),
+                "memory_returned": device.type != "cuda" or all(
+                    r["memory_after"] == r["memory_before"] for r in ranks),
+            }
+            if tp == 2:
+                lead_fault = faults[0] or {}
+                rec["gates"]["follower_fault"] = (
+                    all(f is not None and f.get("thread_alive") is False
+                        and f.get("watcher_alive") is False for f in faults)
+                    and lead_fault.get("ended") is True
+                    and lead_fault["seconds"] < FAULT_DEADLINE_S
+                    and lead_fault["tokens"][-1] == -1
+                    and "injected follower fault" in lead_fault["error"]
+                    and "rank 1" in lead_fault["error"])
+            good = all(rec["gates"].values())
+        rec["ok"] = good
+        ok = ok and good
+        records.append(rec)
+        _emit(rec)
+    _emit({"phase": "serve", "ok": ok, "tps": [r["tp"] for r in records],
+           "k1_expected_per_rank": expected_k1})
+    _emit({"ok": ok, "device": {"platform": "gpu" if args.device == "cuda" else "cpu",
+                                "kind": card["device"], "count": card["count"]}})
+    return 0 if ok else 1
+
+
+def main(argv=None) -> int:
+    args = _args(argv)
+    args.argv = argv
+    if args.rank is not None:
+        return _serve_worker(args) if args.mode == "serve" else _worker(args)
+    import torch
+
+    need = max(TP_DEGREES) if args.mode == "serve" else args.ranks
+    if args.device == "cuda" and (not torch.cuda.is_available()
+                                  or torch.cuda.device_count() < need):
+        print(f"chip_mesh: {need} GPUs needed", file=sys.stderr)
+        return 2
+    if args.device == "cuda":
+        from chip_smoke import phase_card
+
+        card = phase_card()
+    else:
+        card = {"device": "cpu", "count": 0}
+    if args.mode == "serve":
+        return _serve_main(args, card)
+    axes = _axes(args.mesh)
+    blocks = math.prod(axes.get(a, 1) for a in ("dp", "fsdp"))
+    ref = _reference(args, blocks)
+    _emit({"phase": "reference", **ref})
+    tmp = tempfile.mkdtemp(prefix="chip_mesh_")
+    try:
+        codes = _launch(args, args.ranks, tmp)
+        ranks = []
+        for rank in range(args.ranks):
+            path = os.path.join(tmp, f"rank_{rank}.json")
+            ranks.append(json.load(open(path)) if os.path.exists(path) else None)
+    finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     def rel(a, b):

@@ -14,6 +14,10 @@ Phases, each printing one JSON record per line:
            >= 20 after warmup) beside SDPA as a yardstick (kernel_over_library)
            and the card's bound, and the host time of one call beside SDPA's;
            rerun 20 times on the same inputs, equal bit for bit
+  tp       K1 held against its plain version the same way at a tensor-parallel
+           rank's heads of llama3-8b (16/4 at tp=2, 8/2 at tp=4; D 128; S 128
+           and 2048), beside SDPA; the TP engine itself needs a card per rank
+           (chip_mesh.py --mode serve: one card cannot hold two NCCL ranks)
   k2       the flash-attention backward kernel held against its plain PyTorch
            version the same way, beside SDPA's backward, with each of its CUDA
            kernels' device time (torch.profiler), and run twice on the same
@@ -238,6 +242,11 @@ K1_CASES = [
 # layout); the fused phase's route is bshd.
 K1_TRAIN_CASES = [(4, 2048, 32, 8, 64, True, "bhsd"), (8, 1024, 12, 12, 64, True, "bhsd"),
                   (4, 2048, 32, 8, 64, True, "bshd")]
+# K1 at a tensor-parallel rank's heads of llama3-8b (32 query over 8 kv heads
+# split by head: 16/4 at tp=2, 8/2 at tp=4), at the served chunk and max_seq.
+# The TP engine runs those on several cards (chip_mesh.py --mode serve).
+TP_K1_CASES = [(128, 16, 4, 128, True, "bshd"), (2048, 16, 4, 128, True, "bshd"),
+               (128, 8, 2, 128, True, "bshd"), (2048, 8, 2, 128, True, "bshd")]
 
 # The train phase's configurations: (model, batch, seq, remat, timed steps).
 TRAIN_RUNS = [("llama3-1b", 4, 2048, True, 6), ("gpt2-125m", 8, 1024, False, 6)]
@@ -245,8 +254,8 @@ K1_REPEATS = 20  # reruns of K1 on the same inputs, each compared bit for bit
 K1_MAIN_SHAPE = (128, 32, 8, 128, True, "bshd")  # 3 of the 4 served offset-0 chunks
 K1_MAX_SEQ_SHAPE = (2048, 32, 8, 128, True, "bshd")  # the served max_seq, one prompt
 
-PHASES = ("build", "k1", "k2", "head", "model", "serve", "prefix", "tiers", "guided", "stream",
-          "spec", "lora", "pd", "train", "remat", "fused", "ckpt", "mesh")
+PHASES = ("build", "k1", "tp", "k2", "head", "model", "serve", "prefix", "tiers", "guided",
+          "stream", "spec", "lora", "pd", "train", "remat", "fused", "ckpt", "mesh")
 
 # The guided phase's specs: (spec, max_tokens). The regex finishes at its
 # accepting dead-end (8 tokens); the schema's integer is unbounded, so
@@ -495,6 +504,24 @@ def phase_k1() -> list:
         emit(rec)
         recs.append(rec)
     return recs
+
+
+def phase_tp() -> tuple:
+    """K1 held against its plain version at the per-rank shapes of
+    tensor-parallel serving (TP_K1_CASES), with its and SDPA's times there:
+    (the phase's record, the k1 records)."""
+    recs = []
+    for case in TP_K1_CASES:
+        rec = k1_case(*case)
+        rec["path"] = "tp"
+        emit(rec)
+        recs.append(rec)
+    rec = {"phase": "tp", "ok": all(r["ok"] for r in recs), "cases": [
+        {key: r[key] for key in ("shape", "ok", "out_max_abs_err", "kernel_ms", "plain_ms",
+                                 "library_ms", "kernel_over_library", "bound_ms", "bound_by")}
+        for r in recs]}
+    emit(rec)
+    return rec, recs
 
 
 def _kernel_split(fn) -> dict:
@@ -3260,6 +3287,8 @@ def main(argv=None) -> int:
     card = phase_card()
     build = phase_build() if "build" in phases else None
     k1 = phase_k1() if "k1" in phases else []
+    tp, tp_k1 = phase_tp() if "tp" in phases else (None, [])
+    k1 = k1 + tp_k1
     k2 = phase_k2() if "k2" in phases else []
     head = phase_head() if "head" in phases else []
     shapes = _ShapeLog()  # from here on, the main paths
@@ -3331,7 +3360,7 @@ def main(argv=None) -> int:
                        "unlisted": [sh for sh in mine if tuple(sh) in unlisted]}
         lora_shapes["ok"] = bool(mine) and not lora_shapes["unlisted"]
         emit(lora_shapes)
-    records = [r for r in (*k1, *k2, *head, model, serve, prefix, tiers, guided, stream, spec,
+    records = [r for r in (*k1, tp, *k2, *head, model, serve, prefix, tiers, guided, stream, spec,
                            lora, lora_shapes, pd, *train, remat, fused, ckpt, mesh, shape_rec)
                if r is not None]
     failed = [r.get("phase") for r in records if not r["ok"]]
@@ -3369,6 +3398,7 @@ def main(argv=None) -> int:
         "ms": main_rec["kernel_ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
         "library_ms": main_rec["library_ms"], "shape": main_rec["shape"],
+        "tp_rank_shapes": tp["cases"],
     }, {
         "name": "flash_bwd", "route": "cuda",
         "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",

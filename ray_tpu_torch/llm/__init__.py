@@ -1,4 +1,4 @@
-"""ray_tpu_torch.llm: LLM serving on one GPU, in process.
+"""ray_tpu_torch.llm: LLM serving on one GPU or over a tensor-parallel group, in process.
 
 Twin of `ray_tpu/llm/__init__.py` for this slice: `LLMConfig`, `load_model`
 and `LLMServer` (generate, with guided decoding, LoRA adapters and its
@@ -6,7 +6,11 @@ flight-recorder `timing` breakdown; generate_stream; load_lora; model_id;
 cache_stats; scheduler_stats; adapter_stats; recorder_stats;
 set_tenant_weight; autopilot_signals; shutdown) over the port's
 `DecodeEngine`, speculative decoding through `LLMConfig.spec_config` and
-multi-LoRA serving through `LLMConfig.lora_config`. The PD handoff runs on
+multi-LoRA serving through `LLMConfig.lora_config`, and tensor parallelism
+through `LLMConfig.tp`: every rank of a torch.distributed job of `tp`
+processes (one GPU each) builds the `LLMServer`, which loads only the rank's
+shards; rank 0 serves, and the others follow until rank 0's `shutdown`
+(theirs returns then). The PD handoff runs on
 the engines (`DecodeEngine.prefill_detached` and `submit_prefilled`). The
 Serve deployment, the OpenAI router (with its `model="base:adapter"`
 selection), the DP/PD routers, `export_prefix`/`import_prefix` and
@@ -30,10 +34,11 @@ from ray_tpu_torch.llm._engine import (
     DecodeEngine,
     EngineOverloadedError,
     SamplingParams,
-    sharded_params,
+    local_params,
 )
 from ray_tpu_torch.llm.adapters import AdapterCacheFullError, UnknownAdapterError
 from ray_tpu_torch.llm.generate import ConstraintCompiler
+from ray_tpu_torch.llm.tp import shard_decode_params, shard_leaf, tp_degree, tp_device_count
 
 __all__ = [
     "AdapterCacheFullError",
@@ -45,6 +50,7 @@ __all__ = [
     "SamplingParams",
     "UnknownAdapterError",
     "load_model",
+    "tp_device_count",
 ]
 
 
@@ -97,6 +103,10 @@ class LLMConfig:
     tenant_weights: Optional[dict] = None
     wfq: bool = True
     tenant_quota: Optional[int] = None
+    # Tensor parallelism: the engine's degree (or {"tp": N}). With N > 1
+    # every rank of a torch.distributed job of N processes builds the server
+    # on its own device; rank 0 serves.
+    tp: Any = 1
     device: Optional[str] = None  # None -> CUDA (raises without a GPU)
 
 
@@ -105,19 +115,30 @@ def load_model(config: LLMConfig):
     device, matrices stored in the model's activation dtype (bf16 copies of
     f32 checkpoints give the same math) and norm scales in f32. A sharded
     checkpoint warm-starts from its "params" subtree (or the whole tree, for
-    a bare params save); only a committed one is accepted."""
+    a bare params save); only a committed one is accepted. With `tp` > 1
+    (collective) the tree is this rank's shards, and the device never holds
+    the whole tree: a sharded checkpoint's rank reads only its regions,
+    params.pkl is sliced on the host, and random weights are drawn leaf by
+    leaf (the draws of tp=1) with each leaf cut to the rank's block at once,
+    so the peak is the shards and one whole leaf."""
     from ray_tpu_torch.checkpoint import is_sharded
-    from ray_tpu_torch.models.convert import params_from_jax
-    from ray_tpu_torch.models.transformer import CONFIGS, get_config, init_params
+    from ray_tpu_torch.models.convert import params_from_jax, unstack_layers
+    from ray_tpu_torch.models.transformer import CONFIGS, draw_params, get_config, init_params
 
     device = resolve_device(config.device)
     cfg = config.model_config or get_config(
         config.model_id if config.model_id in CONFIGS else "test-tiny"
     )
     cfg = dataclasses.replace(cfg, param_dtype=cfg.dtype)
+    tp = tp_degree(config.tp)
+    rank = 0
+    if tp > 1:
+        import torch.distributed as dist
+
+        rank = dist.get_rank()
     if config.checkpoint_path:
         if is_sharded(config.checkpoint_path):
-            tree = sharded_params(config.checkpoint_path)
+            tree = local_params(config.checkpoint_path, tp, device)
         else:
             path = os.path.join(config.checkpoint_path, "params.pkl")
             if not os.path.exists(path):
@@ -128,7 +149,20 @@ def load_model(config: LLMConfig):
             # Trusted input: params.pkl is this framework's own weight format.
             with open(path, "rb") as f:
                 tree = pickle.load(f)
+            if tp > 1:
+                if set(tree) == {"params"}:
+                    tree = tree["params"]
+                tree = shard_decode_params(unstack_layers(tree, cfg.n_layers), tp, rank, cfg)
         params = params_from_jax(tree, cfg, device)
+    elif tp > 1:
+        gen = torch.Generator(device=device).manual_seed(config.seed)
+        params = {}
+        for path, leaf in draw_params(cfg, gen, device):
+            node = params
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = shard_leaf(path, leaf, tp, rank)
+            del leaf
     else:
         gen = torch.Generator(device=device).manual_seed(config.seed)
         params = init_params(cfg, gen, device)
@@ -136,7 +170,9 @@ def load_model(config: LLMConfig):
 
 
 class LLMServer:
-    """One GPU replica: engine + tokenizer."""
+    """One replica: engine + tokenizer, on one GPU or (LLMConfig.tp) on the
+    caller's GPU as one rank of a tensor-parallel group, where rank 0's
+    server answers and the others' raise."""
 
     def __init__(self, config: LLMConfig):
         cfg, params = load_model(config)
@@ -157,7 +193,7 @@ class LLMServer:
             max_seq=config.max_seq or min(cfg.max_seq, 2048), seed=config.seed,
             lora_config=config.lora_config, spec_config=config.spec_config,
             wfq=config.wfq, tenant_weights=config.tenant_weights,
-            tenant_quota=config.tenant_quota, device=config.device,
+            tenant_quota=config.tenant_quota, tp=config.tp, device=config.device,
         )
 
     async def load_lora(self, name: str, layer_weights: dict, alpha: float = 1.0) -> int:
@@ -317,5 +353,6 @@ class LLMServer:
 
     async def shutdown(self):
         """Stop the stepper and fail queued requests so blocked submitters
-        unwind now."""
+        unwind now. On a tensor-parallel follower it returns once rank 0's
+        server has shut down."""
         self._engine.shutdown()

@@ -52,14 +52,27 @@ forward over scratch caches, so it runs K1 as a local prompt's first chunk
 does; a prefix-cache hit prefills only the suffix through the masked route.
 The detached rows are exactly [0, prompt_len) (JAX pads them to a bucket).
 
-Not in this slice (it raises): tensor parallelism. Not ported yet: the
-DeviceChannel transport.
+Tensor parallelism (`tp=N`, `llm/tp.py`): the N ranks of a
+torch.distributed job each build the engine, one process per device, over
+their shards of the weights (Megatron's splits), of the KV pool (by kv head)
+and of the LoRA B factors. Rank 0 is the engine users see: the scheduler,
+sampling, the prefix cache's host pool, the adapter registry, the recorder
+and streams are its host work. Every device operation goes through `_op`:
+rank 0 announces it and its host arguments, then runs it; each follower's
+thread runs the same operation on its shards in the order announced. The
+forward all-reduces o's and down's f32 partial products and the masked
+embedding rows; the logits stay split by vocab until a token is chosen
+(gathered to rank 0 for host sampling; an argmax across the ranks for the
+verify and the multi-step chunk). Not with tp > 1 yet (they raise, ROADMAP
+[7e]): the tiered prefix cache, the PD handoff and model drafts. Not ported
+yet: the DeviceChannel transport.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import threading
 import time
@@ -75,6 +88,16 @@ from ray_tpu_torch.checkpoint import restore
 from ray_tpu_torch.llm.adapters import AdapterCache, UnknownAdapterError
 from ray_tpu_torch.llm.flight_recorder import FlightRecorder, ServeMetrics
 from ray_tpu_torch.llm.kvcache import PrefixCacheManager, TieredPrefixCacheManager
+from ray_tpu_torch.llm.tp import (
+    PING_S,
+    ShardedKVPool,
+    TPShard,
+    build_tp_mesh,
+    checkpoint_shardings,
+    kv_prefix_sharding,
+    shard_decode_params,
+    tp_degree,
+)
 from ray_tpu_torch.llm.scheduler.scheduler import (
     EngineOverloadedError,
     Request,
@@ -104,6 +127,42 @@ def _dense(x, kernel):
     """x [..., M] . kernel [M, N] in x's dtype. A bf16 product accumulates in
     f32 and rounds once, as JAX's preferred_element_type=f32 then astype."""
     return x @ kernel.to(x.dtype)
+
+
+def _dense_f32(x, kernel):
+    """x [..., M] . kernel [M, N] with kernel rounded to x's dtype, f32 sums
+    and an f32 result: a row-parallel rank's partial product, summed over
+    the ranks before the one rounding to x's dtype."""
+    w = kernel.to(x.dtype)
+    if x.dtype == torch.float32:
+        return x @ w
+    if x.is_cuda:
+        return torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32).view(
+            *x.shape[:-1], w.shape[-1])
+    return x.float() @ w.float()
+
+
+def _row_parallel(x, kernel, split: bool, tp):
+    """x . kernel where kernel's input rows are this rank's slice (o, down):
+    the partials all-reduced in f32 and rounded once. A replicated kernel
+    (split False) holds every row, so its product is whole already."""
+    if tp is None or not split:
+        return _dense(x, kernel)
+    return tp.all_reduce(_dense_f32(x, kernel)).to(x.dtype)
+
+
+def _embed(embed, tokens, dtype, tp):
+    """The embedding rows of tokens in dtype. With the vocab split each rank
+    looks up the tokens in its row range, zeros elsewhere, and the ranks'
+    rows are summed: one term is non-zero, so the sum is exact."""
+    if tp is None or not tp.vocab_split:
+        return embed[tokens].to(dtype)
+    lo, hi = tp.vocab
+    local = tokens - lo
+    inside = (local >= 0) & (local < hi - lo)
+    x = embed[local.clamp(0, hi - lo - 1)].to(dtype)
+    return tp.all_reduce(torch.where(inside[..., None], x, torch.zeros((), dtype=dtype,
+                                                                      device=x.device)))
 
 
 def _rmsnorm(x, scale, eps):
@@ -142,7 +201,7 @@ def _write_kv(cache, new, write_at, write_gate=None):
 
 
 def _attn_cached(layer, x, positions, cache_k, cache_v, write_at, kv_mask, cfg,
-                 write_gate=None, lora_layer=None, adapter_ids=None):
+                 write_gate=None, lora_layer=None, adapter_ids=None, tp=None):
     """One attention layer against the KV cache.
 
     x: [B, S, M]; positions: [B, S]; cache_k/v: [B, T, Hkv, D] (written in
@@ -152,9 +211,14 @@ def _attn_cached(layer, x, positions, cache_k, cache_v, write_at, kv_mask, cfg,
     lora_layer (optional): this layer's stacked adapter tables {"q_A":
     [A,M,r], "q_B": [A,r,H*D], "v_A", "v_B", "scale": [A]}, gathered per
     slot by adapter_ids [B]; the delta lands in q and v before RoPE and the
-    KV write, so both attention routes see it."""
+    KV write, so both attention routes see it.
+    tp (a `TPShard`, or None): the layer's weights, the caches and the
+    LoRA B factors hold this rank's heads; the attention runs on them and o's
+    partial products are summed over the ranks."""
     B, S, _ = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if tp is not None:
+        H, Hkv = tp.heads, tp.kv_heads
     q = _dense(x, layer["q"]["kernel"].reshape(cfg.hidden, -1)).view(B, S, H, D)
     k = _dense(x, layer["k"]["kernel"].reshape(cfg.hidden, -1)).view(B, S, Hkv, D)
     v = _dense(x, layer["v"]["kernel"].reshape(cfg.hidden, -1)).view(B, S, Hkv, D)
@@ -172,47 +236,64 @@ def _attn_cached(layer, x, positions, cache_k, cache_v, write_at, kv_mask, cfg,
     _write_kv(cache_v, v, write_at, write_gate)
 
     scale = 1.0 / math.sqrt(D)
+    select = None if tp is None else tp.kv_select
     if kv_mask is None:
-        out, _ = flash_forward(q, cache_k[:, :S], cache_v[:, :S], causal=True,
-                               scale=scale, layout="bshd")
+        kk, vv = cache_k[:, :S], cache_v[:, :S]
+        if select is not None:
+            kk, vv = _kv_heads(kk, select), _kv_heads(vv, select)
+        out, _ = flash_forward(q, kk, vv, causal=True, scale=scale, layout="bshd")
     else:
+        if select is not None:
+            cache_k, cache_v = _kv_heads(cache_k, select), _kv_heads(cache_v, select)
         # GQA without copying the cache: query head h = g * rep + r reads kv
         # head g, the pairing jnp.repeat(kk, rep, axis=2) gives.
-        T, rep = cache_k.shape[1], H // Hkv
-        qg = q.view(B, S, Hkv, rep, D)
+        T, rep = cache_k.shape[1], H // cache_k.shape[2]
+        qg = q.view(B, S, -1, rep, D)
         logits = torch.einsum("bsgrd,btgd->bgrst", qg, cache_k.to(q.dtype))
         logits = logits.reshape(B, H, S, T) * scale
         logits = torch.where(kv_mask[:, None], logits.float(), _NEG_INF)
         probs = torch.softmax(logits, dim=-1).to(q.dtype)
-        out = torch.einsum("bgrst,btgd->bsgrd", probs.view(B, Hkv, rep, S, T),
+        out = torch.einsum("bgrst,btgd->bsgrd", probs.view(B, -1, rep, S, T),
                            cache_v.to(q.dtype)).reshape(B, S, H, D)
     o_kernel = layer["o"]["kernel"].reshape(-1, cfg.hidden)
-    return _dense(out.reshape(B, S, -1), o_kernel)
+    return _row_parallel(out.reshape(B, S, -1), o_kernel, tp is not None and tp.q_split, tp)
 
 
-def _mlp(layer, x):
+def _kv_heads(cache, select):
+    """The kv heads [B, T, ., D] a rank's query heads read (`TPShard.
+    kv_select`): a view for a slice, one gathered head per query head for an
+    index."""
+    if isinstance(select, slice):
+        return cache[:, :, select]
+    return cache.index_select(2, select)
+
+
+def _mlp(layer, x, tp=None):
     gate = _dense(x, layer["gate"]["kernel"])
     up = _dense(x, layer["up"]["kernel"])
-    return _dense(F.silu(gate) * up, layer["down"]["kernel"])
+    return _row_parallel(F.silu(gate) * up, layer["down"]["kernel"],
+                         tp is not None and tp.mlp_split, tp)
 
 
 def _forward_cached(params: ParamTree, cfg: ModelConfig, tokens, positions, caches,
-                    write_at, kv_mask, write_gate=None, lora=None, adapter_ids=None):
+                    write_at, kv_mask, write_gate=None, lora=None, adapter_ids=None, tp=None):
     """tokens: [B,S] -> logits [B,S,V] f32; writes the caches in place.
 
     lora: the AdapterCache's stacked tables ({"q_A": [L, A, M, r], ...}),
     indexed per layer here; adapter_ids [B] picks each slot's row (0 = the
-    base model). None computes no delta."""
+    base model). None computes no delta. tp (a `TPShard`): params, caches
+    and tables are this rank's shards; the logits are its vocab slice
+    [B, S, V / tp] (whole where the vocab does not split)."""
     embed = params["embedding"]
-    x = embed[tokens].to(cfg.dtype)
+    x = _embed(embed, tokens, cfg.dtype, tp)
     for i in range(cfg.n_layers):
         layer = params[f"layer_{i}"]
         normed = _rmsnorm(x, layer["attn_norm"]["scale"], cfg.norm_eps)
         lora_layer = None if lora is None else {k: v[i] for k, v in lora.items()}
         x = x + _attn_cached(layer["attn"], normed, positions, caches[i][0],
                              caches[i][1], write_at, kv_mask, cfg, write_gate,
-                             lora_layer, adapter_ids)
-        x = x + _mlp(layer["mlp"], _rmsnorm(x, layer["mlp_norm"]["scale"], cfg.norm_eps))
+                             lora_layer, adapter_ids, tp)
+        x = x + _mlp(layer["mlp"], _rmsnorm(x, layer["mlp_norm"]["scale"], cfg.norm_eps), tp)
     x = _rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
     if cfg.tie_embeddings:
         # bf16 operands, f32 products and sums (JAX: preferred_element_type).
@@ -255,6 +336,28 @@ def _not_in_slice(what: str, where: str):
     )
 
 
+def _tp_later(what: str):
+    return _not_in_slice(f"{what} on a tensor-parallel engine (tp > 1)", "Queue 1, item [7e]")
+
+
+# The engine methods a follower runs when rank 0 announces them (`_op`).
+_TP_OPS = frozenset({"_prefill_at", "_decode_logits", "_decode_multi", "_spec_verify_batched",
+                     "_attach_kv", "_read_kv_blocks", "_install_adapter_row", "_ping"})
+
+
+def _leader_only(fn):
+    """A public engine call: on a tensor-parallel follower (rank > 0) it
+    raises, since rank 0 is the engine users see."""
+    @functools.wraps(fn)
+    def call(self, *args, **kwargs):
+        if self._tp is not None and not self._tp.leader:
+            raise RuntimeError(
+                f"{fn.__name__}: rank {self._tp.rank} of this tensor-parallel engine is "
+                f"a follower; rank 0 serves")
+        return fn(self, *args, **kwargs)
+    return call
+
+
 def sharded_params(path: str):
     """The params of a committed sharded checkpoint, on the host: its
     "params" subtree for a train state, else the whole tree (a bare params
@@ -262,6 +365,26 @@ def sharded_params(path: str):
     directories."""
     tree = restore(path)
     return tree.get("params", tree) if isinstance(tree, dict) else tree
+
+
+def local_params(path: str, tp, device):
+    """`sharded_params`, or with tp > 1 (collective) this rank's shards of
+    them: each leaf read from the regions that overlap its slice under
+    `param_spec`, as torch tensors."""
+    mesh = build_tp_mesh(tp, device)
+    if mesh is None:
+        return sharded_params(path)
+    from torch.distributed.tensor import DTensor
+
+    tree = restore(path, mesh=mesh, placements=checkpoint_shardings(path, mesh))
+    tree = tree.get("params", tree) if isinstance(tree, dict) else tree
+
+    def local(node):
+        if isinstance(node, dict):
+            return {k: local(v) for k, v in node.items()}
+        return node.to_local() if isinstance(node, DTensor) else node
+
+    return local(tree)
 
 
 class DecodeEngine:
@@ -281,8 +404,6 @@ class DecodeEngine:
                  tenant_weights: Optional[Dict[str, float]] = None,
                  tenant_quota: Optional[int] = None,
                  tp=1, device=None):
-        if tp != 1:
-            raise _not_in_slice("tp > 1 (tensor-parallel serving)", "Queue 1, item 7")
         if cfg.fused_qkv or "qkv" in params.get("layer_0", {}).get("attn", {}):
             raise ValueError(
                 "DecodeEngine reads separate q, k, v and gate, up matrices "
@@ -291,6 +412,18 @@ class DecodeEngine:
             )
         self.device = resolve_device(device)
         self.cfg = cfg
+        # Tensor parallelism: tp > 1 (or {"tp": N}) is called collectively
+        # by the N ranks of the job, one process per device, each holding
+        # its shards of the weights, the KV pool and the adapter tables.
+        # Rank 0 is the engine users see; the others follow its operations
+        # (`_op`, `_follow`). tp=1 keeps the single-device path.
+        self.tp = tp_degree(tp)
+        self._tp: Optional[TPShard] = None
+        self._kv_pool: Optional[ShardedKVPool] = None
+        if self.tp > 1:
+            self._check_tp(spec_config, prefix_cache)
+            self._tp = TPShard(cfg, self.tp, self.device)
+            params = shard_decode_params(params, self.tp, self._tp.rank, cfg)
         self.params = _tree_to(params, self.device)
         self.B = num_slots
         self.T = max_seq or cfg.max_seq
@@ -314,16 +447,23 @@ class DecodeEngine:
                 budget_bytes=int(budget),
                 cache_slots=lora_config.get("cache_slots"),
                 name=f"engine-{id(self):x}", device=self.device,
+                **self._tp_adapter_args(),
             )
         # Each slot's adapter row (device table row, not the stable uid),
         # host-native like lens and shipped with each batched dispatch.
         self._adapter_ids = np.zeros((self.B,), np.int64)
         kv_shape = (self.B, self.T, cfg.n_kv_heads, cfg.head_dim)
-        self._caches = [
-            (torch.zeros(kv_shape, dtype=cfg.dtype, device=self.device),
-             torch.zeros(kv_shape, dtype=cfg.dtype, device=self.device))
-            for _ in range(cfg.n_layers)
-        ]
+        if self._tp is not None:
+            self._kv_pool = ShardedKVPool(
+                n_layers=cfg.n_layers, shape=kv_shape, dtype=cfg.dtype, device=self.device,
+                tp=self.tp, n_kv_heads=cfg.n_kv_heads, name=f"engine-{id(self):x}")
+            self._caches = self._kv_pool.caches
+        else:
+            self._caches = [
+                (torch.zeros(kv_shape, dtype=cfg.dtype, device=self.device),
+                 torch.zeros(kv_shape, dtype=cfg.dtype, device=self.device))
+                for _ in range(cfg.n_layers)
+            ]
         # Per-slot lengths and last tokens are host-native (numpy): the
         # stepper reads and writes them every step; each dispatch ships them
         # host->device (a few bytes).
@@ -376,6 +516,12 @@ class DecodeEngine:
                         name=f"engine-{id(self):x}",
                     )
         self._prefix_cache = prefix_cache or None
+        self._kv_block_size = (CONFIG.llm_kv_block_size if self._prefix_cache is None
+                               else self._prefix_cache.block_size)
+        if self._tp is not None:
+            self._kv_block_size = self._tp.broadcast(self._kv_block_size)
+            if not self._tp.leader:
+                self._prefix_cache = None  # rank 0 keeps the host pool
         if max_queue_depth is None:
             max_queue_depth = CONFIG.llm_max_queue_depth
         if token_budget is None:
@@ -429,10 +575,38 @@ class DecodeEngine:
         # The stepper launches on the stream that was current here.
         self._stream = (torch.cuda.current_stream(self.device)
                         if self.device.type == "cuda" else None)
+        # Rank 0 announces and runs each device operation under this lock,
+        # so the followers see the operations in the order rank 0 runs them.
+        self._op_lock = threading.Lock()
+        self._last_announce = time.monotonic()
         self._thread = None
-        if decode_loop:
+        if self._tp is not None and not self._tp.leader:
+            self._thread = threading.Thread(target=self._follow, daemon=True)
+            self._thread.start()
+        elif decode_loop:
             self._thread = threading.Thread(target=self._loop, daemon=True)
             self._thread.start()
+
+    def _check_tp(self, spec_config: Optional[dict], prefix_cache) -> None:
+        """Refuse, before any group is made, what a TP engine does not run
+        yet: a tiered prefix cache and a model draft ([7e])."""
+        if isinstance(prefix_cache, TieredPrefixCacheManager) or (
+                prefix_cache in (None, True) and CONFIG.llm_prefix_cache_bytes > 0
+                and (CONFIG.llm_kv_device_bytes > 0 or CONFIG.llm_kv_spill_dir)):
+            raise _tp_later("the tiered prefix cache (llm_kv_device_bytes, llm_kv_spill_dir)")
+        if spec_config and spec_config.get("method") != "ngram":
+            raise _tp_later("a model draft (draft_layers, draft_cfg, the self-draft)")
+
+    def _tp_adapter_args(self) -> dict:
+        """A TP rank's AdapterCache keeps the q_B and v_B columns of its own
+        heads (the split of q and v themselves); rank 0's page-ins ship the
+        rows to every rank."""
+        if self._tp is None:
+            return {}
+        args = {"q_cols": self._tp.q_cols, "v_cols": self._tp.v_cols}
+        if self._tp.leader:
+            args["install"] = functools.partial(self._op, "_install_adapter_row")
+        return args
 
     def _build_draft(self, spec_config: dict):
         """spec_config -> DraftProvider. method="ngram" builds the zero-FLOP
@@ -475,15 +649,17 @@ class DecodeEngine:
         (`ray_tpu_torch.checkpoint`, the format either package writes): a
         bare params save or a train-state save holding a "params" subtree,
         matrices in `cfg.param_dtype` on the engine's device. Refuses
-        uncommitted (manifest-less) directories."""
+        uncommitted (manifest-less) directories. With tp > 1 (called by
+        every rank) each rank reads only the file regions of its own shards
+        (`tp.checkpoint_shardings`), never the whole tree."""
         from ray_tpu_torch.models.convert import params_from_jax
 
-        if tp != 1:
-            raise _not_in_slice("tp > 1 (tensor-parallel serving)", "Queue 1, item 7")
         device = resolve_device(kwargs.get("device"))
-        return cls(cfg, params_from_jax(sharded_params(path), cfg, device), tp=tp, **kwargs)
+        return cls(cfg, params_from_jax(local_params(path, tp, device), cfg, device), tp=tp,
+                   **kwargs)
 
     # -- lora registry -----------------------------------------------------
+    @_leader_only
     def add_lora(self, name: str, layer_weights: Dict[int, Dict[str, np.ndarray]],
                  alpha: float = 1.0) -> int:
         """Register an adapter host-side. layer_weights: layer index ->
@@ -511,6 +687,7 @@ class DecodeEngine:
             )
         return self._adapters.uid_of(lora)
 
+    @_leader_only
     def adapter_stats(self) -> Optional[dict]:
         """AdapterCache residency and paging counters (None when the engine
         has no lora_config)."""
@@ -530,13 +707,48 @@ class DecodeEngine:
             adapter_ids = self._adapter_ids
         return {"lora": self._adapters.tables(), "adapter_ids": self._dev(adapter_ids)}
 
+    def _op(self, name: str, *args):
+        """Run the device operation `name` (an engine method) with host
+        arguments. On a TP engine rank 0 first announces it, with the slots'
+        adapter rows, to the followers, which run the same method on their
+        shards in the order announced; rank 0 then refuses the result if a
+        rank reported a failure meanwhile (`TPShard.check`). Tensor arguments
+        are not announced: the method hands each rank its part of them
+        itself."""
+        if self._tp is None:
+            return getattr(self, name)(*args)
+        with self._op_lock:
+            self._tp.announce(name, ([None if isinstance(a, torch.Tensor) else a for a in args],
+                                     self._adapter_ids.copy()))
+            self._last_announce = time.monotonic()
+            out = getattr(self, name)(*args)
+            self._tp.check()
+            return out
+
+    def _ping(self):
+        """The no-op an idle rank 0 announces (keeps the followers' waits
+        inside the groups' timeout)."""
+
+    def _argmax(self, logits: torch.Tensor) -> torch.Tensor:
+        """The argmax over the vocab, on every rank of a TP engine."""
+        return torch.argmax(logits, dim=-1) if self._tp is None else self._tp.argmax(logits)
+
+    def _vocab_cols(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's columns of a [..., V] tensor (all of them at tp=1)."""
+        if self._tp is None or not self._tp.vocab_split:
+            return t
+        lo, hi = self._tp.vocab
+        return t[..., lo:hi]
+
     def _prefill_at(self, tokens: torch.Tensor, slot: int, offset: int,
                     total_len: int, adapter_slot: int = 0) -> torch.Tensor:
         """tokens: [1, Sbucket] right-padded, starting at row/position
         `offset` (0 = a prompt's first chunk; > 0 = a later chunk), under
         the adapter in table row `adapter_slot`. Writes slot `slot`'s cache
         rows [offset, offset + S) in place and returns the logits row of
-        prompt position total_len - 1."""
+        prompt position total_len - 1 (on a TP engine: the whole row on rank
+        0, None on the others)."""
+        tokens = self._dev(tokens)
         S = tokens.shape[1]
         positions = (offset + torch.arange(S, device=self.device))[None, :]
         # One-slot views: writes through them land in the pool.
@@ -548,10 +760,12 @@ class DecodeEngine:
             mask = (positions[0][:, None]
                     >= torch.arange(self.T, device=self.device)[None, :])[None]
         logits = _forward_cached(self.params, self.cfg, tokens, positions, slot_caches,
-                                 self._dev([offset]), mask, **self._lora([adapter_slot]))
+                                 self._dev([offset]), mask, **self._lora([adapter_slot]),
+                                 tp=self._tp)
         # An intermediate chunk's row is discarded; clamp the index as JAX's
         # gather does.
-        return logits[0, min(total_len - 1 - offset, S - 1)]
+        row = logits[0, min(total_len - 1 - offset, S - 1)]
+        return row if self._tp is None else self._tp.gather_vocab(row)
 
     def _decode_step(self, last_token: torch.Tensor, lens: torch.Tensor,
                      gate: torch.Tensor, adapter_ids=None):
@@ -559,15 +773,25 @@ class DecodeEngine:
         only slots in the decode phase land their KV row (a slot mid-chunked-
         prefill rides through with a stale lens and must not write there);
         adapter_ids: [B] table rows (default: the slots' own).
-        Returns (logits [B, V], lens + 1)."""
+        Returns (logits [B, V], lens + 1); a TP rank's logits are its vocab
+        slice."""
         positions = lens[:, None]
         # key j visible iff j <= lens (the new token writes at index lens)
         kv_mask = (torch.arange(self.T, device=self.device)[None, :]
                    <= lens[:, None])[:, None, :]
         logits = _forward_cached(self.params, self.cfg, last_token[:, None], positions,
                                  self._caches, lens, kv_mask, write_gate=gate,
-                                 **self._lora(adapter_ids))
+                                 **self._lora(adapter_ids), tp=self._tp)
         return logits[:, 0], lens + 1
+
+    def _decode_logits(self, last_token, lens, gate) -> Optional[np.ndarray]:
+        """One decode step, and its logits [B, V] f32 pulled to the host: the
+        step's one device->host copy (on a TP engine the ranks' vocab slices
+        gathered to rank 0; None on the others)."""
+        logits, _ = self._decode_step(self._dev(last_token), self._dev(lens), self._dev(gate))
+        if self._tp is not None:
+            logits = self._tp.gather_vocab(logits)
+        return None if logits is None else logits.cpu().numpy()
 
     def _spec_verify_batched(self, tokens: torch.Tensor, lens: torch.Tensor,
                              gate: torch.Tensor,
@@ -590,31 +814,36 @@ class DecodeEngine:
 
         Each slot verifies under its own adapter (the slots' `_adapter_ids`).
         Returns the on-device argmax [B, k+1] (the host needs k+1 ints per
-        slot, not logits)."""
+        slot, not logits); a TP engine's argmax is over the whole vocab, on
+        every rank, each adding its columns of the mask."""
+        tokens, lens, gate = self._dev(tokens), self._dev(lens), self._dev(gate)
         S = tokens.shape[1]
         positions = lens[:, None] + torch.arange(S, device=self.device)[None, :]
         kv_mask = (torch.arange(self.T, device=self.device)[None, None, :]
                    <= positions[:, :, None])
         logits = _forward_cached(self.params, self.cfg, tokens, positions, self._caches,
-                                 lens, kv_mask, write_gate=gate, **self._lora())
+                                 lens, kv_mask, write_gate=gate, **self._lora(), tp=self._tp)
         if constraint_mask is not None:
-            logits = logits + constraint_mask
-        return torch.argmax(logits, dim=-1)
+            logits = logits + self._vocab_cols(self._dev(constraint_mask))
+        return self._argmax(logits)
 
     def _decode_multi(self, last_token: torch.Tensor, lens: torch.Tensor,
                       gate: torch.Tensor, n: int) -> torch.Tensor:
         """n greedy tokens for every slot with on-device argmax; the caller
         pulls the [n, B] result to the host once. The adapter ids ship
-        once for the n steps."""
+        once for the n steps. Every rank of a TP engine gets the tokens (each
+        step's input)."""
+        last_token, lens, gate = self._dev(last_token), self._dev(lens), self._dev(gate)
         ids = self._lora().get("adapter_ids")
         toks = []
         for _ in range(n):
             logits, lens = self._decode_step(last_token, lens, gate, ids)
-            last_token = torch.argmax(logits, dim=-1)
+            last_token = self._argmax(logits)
             toks.append(last_token)
         return torch.stack(toks)
 
     # -- public API --------------------------------------------------------
+    @_leader_only
     def submit(self, token_ids: List[int], sampling: SamplingParams, callback,
                tenant: Optional[str] = None, request_id: Optional[str] = None,
                lora: str = "", constraint=None):
@@ -688,6 +917,7 @@ class DecodeEngine:
                 f"the model's logits width"
             )
 
+    @_leader_only
     def submit_prefilled(self, kv, prompt_len: int, first_logits, sampling: SamplingParams,
                          callback, lora: str = "", token_ids: Optional[List[int]] = None,
                          tenant: Optional[str] = None, request_id: Optional[str] = None,
@@ -702,6 +932,8 @@ class DecodeEngine:
         caller spent moving kv, becomes the record's `pd-transfer` span.
         Raises as submit() does; a prefix that leaves no row to generate
         into (prompt_len >= max_seq) raises ValueError."""
+        if self._tp is not None:
+            raise _tp_later("submit_prefilled (the PD handoff)")
         self._check_alive()
         if prompt_len >= self.T:
             raise ValueError(
@@ -732,6 +964,7 @@ class DecodeEngine:
             req.rec.span("pd-transfer", t1 - transfer_s, t1, prompt_len=int(prompt_len))
         self._enqueue(req, constraint)
 
+    @_leader_only
     def open_stream(self, token_ids: List[int], sampling: SamplingParams, *,
                     lora: str = "", tenant: Optional[str] = None,
                     request_id: Optional[str] = None, on_token=None, constraint=None,
@@ -770,6 +1003,7 @@ class DecodeEngine:
                      depth=self._sched.queue_depth(), **mark_attrs)
         return rec
 
+    @_leader_only
     def cancel(self, request_id: Optional[str]) -> bool:
         """Cancel one request by the id its submit carried. Still-queued
         requests retire here (callback(-1, True)); prefilling or decoding ones
@@ -784,6 +1018,7 @@ class DecodeEngine:
             self._pending_cancels.add(request_id)
         return True
 
+    @_leader_only
     def prefill_detached(self, token_ids: List[int], lora: str = "",
                          request_id: Optional[str] = None):
         """Prefill without holding a decode slot, for transfer to a decode
@@ -801,6 +1036,8 @@ class DecodeEngine:
         program is dispatched (its tables are immutable); here a released
         row may be paged over in place on the stepper's stream while the
         forward still reads it."""
+        if self._tp is not None:
+            raise _tp_later("prefill_detached (the PD handoff)")
         prompt = list(token_ids)
         if len(prompt) > self.T - 1:
             raise ValueError(
@@ -926,8 +1163,10 @@ class DecodeEngine:
         ck = self._caches[0][0]
         block_nbytes = (len(self._caches) * 2 * bs * ck.shape[2] * ck.shape[3]
                         * ck.element_size())
+        if self._tp is not None and self._tp.kv_split:
+            block_nbytes *= self.tp  # the pool's blocks hold every kv head
         cache.insert_missing(prompt[:n],
-                             lambda first, stop: self._read_kv_blocks(slot, first, stop),
+                             lambda first, stop: self._op("_read_kv_blocks", slot, first, stop),
                              block_nbytes, namespace=adapter)
 
     def _read_kv_blocks(self, slot: int, first: int, stop: int) -> List[torch.Tensor]:
@@ -935,14 +1174,30 @@ class DecodeEngine:
         [L, 2, block_size, Hkv, D] tensor per block, the pool's layout. The
         rows are gathered block-major on the device and pulled in one copy;
         each block is then one contiguous host copy (the pool accounts every
-        block's bytes, so no block may be a view of a shared buffer)."""
-        bs = self._prefix_cache.block_size
+        block's bytes, so no block may be a view of a shared buffer). On a TP
+        engine whose kv heads split, the ranks' rows are gathered to rank 0
+        and joined on the kv-head axis, so the blocks are tp=1's; with the kv
+        heads replicated, rank 0's own rows are whole. Followers return
+        None."""
+        tp = self._tp
+        if tp is not None and not tp.leader and not tp.kv_split:
+            return None
+        bs = self._kv_block_size
         a, b = first * bs, stop * bs
         rows = torch.stack([torch.stack([ck[slot, a:b], cv[slot, a:b]])
                             for ck, cv in self._caches])
+        if tp is not None and tp.kv_split:
+            parts = tp.gather_host(rows.cpu())
+            if not tp.leader:
+                return None
+            rows = torch.cat(parts, dim=kv_prefix_sharding(self.tp, self.cfg.n_kv_heads))
         L, _, _, H, D = rows.shape
         blocks = rows.view(L, 2, stop - first, bs, H, D).permute(2, 0, 1, 3, 4, 5)
         return [blk.clone() for blk in blocks.contiguous().cpu().unbind(0)]
+
+    def _install_adapter_row(self, slot: int, blob: dict) -> None:
+        """A page-in's rows written into this rank's tables (its columns)."""
+        self._adapters.write_row(slot, blob)
 
     def _kv_block_to_device(self, host_kv: torch.Tensor) -> torch.Tensor:
         """Hot-tier promotion copy: one [L, 2, bs, Hkv, D] host block onto
@@ -966,6 +1221,7 @@ class DecodeEngine:
             return kv, lease.tier
         return lease.kv(), "host" if lease.tier == "device" else lease.tier
 
+    @_leader_only
     def prefix_cache_stats(self) -> Optional[dict]:
         """Hit/eviction/residency counters of the paged KV prefix cache,
         with the per-tier breakdown ("tiers") of a tiered cache (None when
@@ -974,6 +1230,7 @@ class DecodeEngine:
             return None
         return self._prefix_cache.stats()
 
+    @_leader_only
     def lease_prefix(self, token_ids: List[int], lora: str = ""):
         """Full-coverage lease of this engine's longest cached prefix of
         token_ids (no len-1 cap: the caller wants every cached row) — the
@@ -985,6 +1242,7 @@ class DecodeEngine:
         return self._prefix_cache.lease_prefix(token_ids,
                                                namespace=self._adapter_index(lora))
 
+    @_leader_only
     def insert_prefix(self, token_ids: List[int], kv, lora: str = "") -> int:
         """Feed a prefix's KV rows [L, 2, P, Hkv, D] (numpy or a CPU tensor)
         fetched elsewhere into this engine's cache — the import side: the
@@ -997,6 +1255,7 @@ class DecodeEngine:
         insert = getattr(self._prefix_cache, "insert_remote", self._prefix_cache.insert)
         return insert(token_ids, kv, namespace=adapter)
 
+    @_leader_only
     def scheduler_stats(self) -> dict:
         """Iteration-level scheduler occupancy (per-phase token counters,
         interleaving, queue depths), speculative-decoding acceptance
@@ -1017,6 +1276,7 @@ class DecodeEngine:
         out["recorder"] = self.recorder_stats()
         return out
 
+    @_leader_only
     def recorder_stats(self) -> dict:
         """Flight-recorder counters, and each tenant's SLO burn rate over its
         recent completions ("burn_rates": windowed breach fraction over
@@ -1026,11 +1286,13 @@ class DecodeEngine:
         return {**self._recorder.stats(),
                 "burn_rates": self._serve_metrics.burn_rates()}
 
+    @_leader_only
     def set_tenant_weight(self, tenant: str, weight: float) -> None:
         """Reshare one tenant's weighted-fair queue weight (the serve
         autopilot's actuator, and the operator's)."""
         self._sched.set_tenant_weight(tenant, weight)
 
+    @_leader_only
     def autopilot_signals(self) -> dict:
         """The serve autopilot's signal vector: queue depth and occupancy
         from the scheduler, SLO burn rates from the metrics windows. The
@@ -1053,6 +1315,7 @@ class DecodeEngine:
                                for t, info in tenants.items() if t != batch},
         }
 
+    @_leader_only
     def request_timing(self, rid: str) -> Optional[dict]:
         """Per-request timing breakdown (the response-metadata payload):
         queue/prefill/decode phase durations, TTFT, mean TPOT, e2e — from
@@ -1156,7 +1419,15 @@ class DecodeEngine:
     def shutdown(self):
         """Idempotent. Stops the stepper, then fails every request that is
         still active or queued; a tiered cache writes its queued spills and
-        stops its spill worker."""
+        stops its spill worker. On a TP engine rank 0 then announces the stop,
+        waits until every follower has ended its thread and freed its pool and
+        weights, frees its own and destroys the engine's groups; a follower's
+        shutdown returns once rank 0's has stopped it (or rank 0 failed)."""
+        if self._tp is not None and not self._tp.leader:
+            self._thread.join()
+            self._release_tp_state()
+            self._tp.close()
+            return
         self._stop = True
         if self._thread is not None:
             self._thread.join(timeout=30)
@@ -1164,6 +1435,24 @@ class DecodeEngine:
         close_cache = getattr(self._prefix_cache, "close", None)
         if close_cache is not None:
             close_cache()
+        if self._tp is not None:
+            if self._tp.group is not None:
+                try:
+                    with self._op_lock:
+                        self._tp.announce("_stop", ([], self._adapter_ids.copy()))
+                    self._tp.barrier()
+                except RuntimeError:
+                    pass  # a rank failed and closed the groups: nothing to stop
+            self._release_tp_state()
+            self._tp.close()
+
+    def _release_tp_state(self):
+        """A TP rank's pool and weights dropped (idempotent): with them the
+        rank's device memory of this engine, past what the caller holds."""
+        if self._kv_pool is not None:
+            self._kv_pool.free()
+            self._caches = []
+            self.params = None
 
     # -- stepper -----------------------------------------------------------
     def _bucket(self, n: int) -> int:
@@ -1177,7 +1466,17 @@ class DecodeEngine:
         cache dtype. kv: [L, 2, P, Hkv, D], owned by the caller. From the
         host it is one H2D copy on the engine's stream, which from pageable
         memory returns once the rows are staged, so the caller may drop kv
-        afterwards; a kv on the engine's device is copied on the device."""
+        afterwards; a kv on the engine's device is copied on the device. On a
+        TP engine rank 0 hands each rank its kv-head slice of the host rows
+        (all of them where the kv heads replicate), and followers pass None."""
+        tp = self._tp
+        if tp is not None:
+            parts = None
+            if tp.leader:
+                dim = kv_prefix_sharding(self.tp, self.cfg.n_kv_heads)
+                parts = [kv] * self.tp if dim is None else \
+                    [part.contiguous() for part in kv.chunk(self.tp, dim=dim)]
+            kv = tp.scatter_host(parts)
         kv = kv.to(self.device)
         P = kv.shape[2]
         for i, (ck, cv) in enumerate(self._caches):
@@ -1210,7 +1509,7 @@ class DecodeEngine:
                 # never written, so releasing the lease cannot change the
                 # rows the copy reads.
                 kv, tier = self._leased_kv(req.lease)
-                self._attach_kv(slot, kv)
+                self._op("_attach_kv", slot, kv)
             finally:
                 req.lease.release()
                 req.lease = None
@@ -1223,8 +1522,8 @@ class DecodeEngine:
         t_chunk = time.time()
         padded = np.zeros((1, chunk.bucket), np.int64)
         padded[0, : len(chunk.tokens)] = chunk.tokens
-        last_logits = self._prefill_at(self._dev(padded), slot, offset, req.prompt_len,
-                                       req.adapter_slot)
+        last_logits = self._op("_prefill_at", padded, slot, offset, req.prompt_len,
+                               req.adapter_slot)
         self._sched.chunk_done(chunk)
         if rec is not None:
             rec.span("prefill-chunk", t_chunk, time.time(),
@@ -1394,7 +1693,40 @@ class DecodeEngine:
                 self._loop_inner()
         except BaseException as e:
             self.error = e
+            if self._tp is not None:
+                # A follower's own error, where it left one, is the cause;
+                # the report and the closed groups end the followers' waits.
+                peer = self._tp.peer_error()
+                if peer is not None:
+                    self.error = RuntimeError(f"tensor-parallel follower failed: {peer}")
+                    self.error.__cause__ = e
+                self._tp.report_failure(self.error)
             self._fail_all()
+            raise
+
+    def _follow(self):
+        """A TP follower's thread: run rank 0's device operations on this
+        rank's shards, in the order announced, until rank 0 stops the engine;
+        then free the pool and weights and tell rank 0. An error is reported
+        in the job's store (rank 0 names it) and closes the engine's groups;
+        rank 0's pending collective then fails (gloo's when the groups close,
+        NCCL's when rank 0's watcher aborts it)."""
+        tp = self._tp
+        try:
+            with self._device_context():
+                while True:
+                    name, (args, adapter_ids) = tp.receive()
+                    if name == "_stop":
+                        break
+                    if name not in _TP_OPS:
+                        raise RuntimeError(f"unknown tensor-parallel operation {name!r}")
+                    self._adapter_ids[:] = adapter_ids
+                    getattr(self, name)(*args)
+            self._release_tp_state()
+            tp.barrier()
+        except BaseException as e:
+            self.error = e
+            tp.report_failure(e)
             raise
 
     def _loop_inner(self):
@@ -1408,6 +1740,8 @@ class DecodeEngine:
             self._process_cancels()
             plan = self._sched.next_plan(draft=self._draft)
             if plan.idle:
+                if self._tp is not None and time.monotonic() - self._last_announce > PING_S:
+                    self._op("_ping")
                 time.sleep(0.002)
                 continue
             for chunk in plan.chunks:
@@ -1456,9 +1790,7 @@ class DecodeEngine:
                 )
                 cmask[i, :len(rows)] = rows
         t_verify = time.time()
-        greedy_dev = self._spec_verify_batched(
-            self._dev(tokens), self._dev(self._lens), self._dev(gate),
-            None if cmask is None else self._dev(cmask))
+        greedy_dev = self._op("_spec_verify_batched", tokens, self._lens, gate, cmask)
         # The round's one acceptance sync: k+1 tokens per participating slot
         # in a single batched pull.
         greedy = greedy_dev.cpu().numpy()
@@ -1499,10 +1831,7 @@ class DecodeEngine:
         # advances below: idle and mid-prefill slots pass through write-free.
         gate = np.zeros((self.B,), bool)
         gate[decode_slots] = True
-        logits, _ = self._decode_step(self._dev(self._last_token), self._dev(self._lens),
-                                      self._dev(gate))
-        # The step's one device->host pull: every slot's next-token logits.
-        logits_np = logits.cpu().numpy()
+        logits_np = self._op("_decode_logits", self._last_token, self._lens, gate)
         for i in decode_slots:
             s = self._sched.slots[i]
             self._lens[i] += 1  # the decode step wrote this slot's kv row
@@ -1531,8 +1860,7 @@ class DecodeEngine:
         slots that stop early: their lens rolls back to what was consumed."""
         gate = np.zeros((self.B,), bool)
         gate[decode_slots] = True
-        toks_dev = self._decode_multi(self._dev(self._last_token), self._dev(self._lens),
-                                      self._dev(gate), n)
+        toks_dev = self._op("_decode_multi", self._last_token, self._lens, gate, n)
         # The chunk's one device->host pull: n tokens x B slots.
         toks = toks_dev.cpu().numpy()
         for i in decode_slots:

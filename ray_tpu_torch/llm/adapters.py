@@ -24,6 +24,11 @@ context, so the copy lands on the stepper's stream after every launch that
 read the row's previous contents. A caller acquiring from another thread
 must hold the same stream.
 
+On a tensor-parallel engine each rank's tables hold the q_B and v_B columns
+of its own heads (`q_cols`, `v_cols`); rank 0 keeps the registry, the pins
+and the LRU, and its page-ins write the row through `install`, which ships
+the whole factors to every rank (each keeps its columns, `write_row`).
+
 No metrics are pushed and no leaksan books are kept: `stats()` returns the
 counters and `AdapterHandle.released` says whether a pin was released.
 """
@@ -127,13 +132,21 @@ class AdapterCache:
     def __init__(self, *, n_layers: int, hidden: int, q_out: int, v_out: int,
                  rank: int, dtype: torch.dtype, max_adapters: int,
                  device, budget_bytes: int = 0, cache_slots: Optional[int] = None,
-                 name: str = ""):
+                 name: str = "", q_cols: Optional[slice] = None,
+                 v_cols: Optional[slice] = None, install=None):
         self.name = name or f"adapters-{id(self):x}"
         self.device = torch.device(device)
         self.n_layers = int(n_layers)
         self.hidden = int(hidden)
         self.q_out = int(q_out)
         self.v_out = int(v_out)
+        # The columns of q_B and v_B this device holds (a tensor-parallel
+        # rank's heads); the registry validates and keeps the whole factors.
+        self.q_cols = q_cols or slice(0, self.q_out)
+        self.v_cols = v_cols or slice(0, self.v_out)
+        # Writes a paged-in adapter's rows: `write_row` here, or a caller's
+        # function that also ships them to the other ranks.
+        self._install = install or self.write_row
         self.rank_bucket = _rank_bucket(max(1, int(rank)))
         self.max_adapters = max(1, int(max_adapters))
         rb = self.rank_bucket
@@ -158,9 +171,9 @@ class AdapterCache:
 
         self._tables = {
             "q_A": zeros(self.n_layers, S, self.hidden, rb),
-            "q_B": zeros(self.n_layers, S, rb, q_out),
+            "q_B": zeros(self.n_layers, S, rb, self.q_cols.stop - self.q_cols.start),
             "v_A": zeros(self.n_layers, S, self.hidden, rb),
-            "v_B": zeros(self.n_layers, S, rb, v_out),
+            "v_B": zeros(self.n_layers, S, rb, self.v_cols.stop - self.v_cols.start),
             "scale": zeros(self.n_layers, S, dt=torch.float32),
         }
         self._lock = threading.Lock()
@@ -335,8 +348,7 @@ class AdapterCache:
         # launch that read the row's previous adapter. The f32 factors cross
         # from pageable host memory, then cast into the row on the device.
         try:
-            for key, row in entry.blob.items():
-                self._tables[key][:, slot].copy_(torch.from_numpy(row).to(self.device))
+            self._install(slot, entry.blob)
         except BaseException:
             # The row may be half written: it holds no adapter any more.
             self._free.insert(0, slot)
@@ -344,6 +356,16 @@ class AdapterCache:
         self._resident[entry.uid] = slot
         self._counters["page_ins"] += 1
         return slot
+
+    def write_row(self, slot: int, blob: dict) -> None:
+        """Copy an adapter's packed f32 factors into table row `slot`: one
+        host-to-device copy per table (this device's columns of q_B and
+        v_B), then the cast into the row, on the current stream."""
+        cols = {"q_B": self.q_cols, "v_B": self.v_cols}
+        for key, row in blob.items():
+            if key in cols:
+                row = row[..., cols[key]]
+            self._tables[key][:, slot].copy_(torch.from_numpy(row).to(self.device))
 
     def _unpin(self, uid: int):
         with self._lock:

@@ -52,7 +52,7 @@ DEFAULT_RULES: dict[str, object] = {
 
 # The axes training over a mesh does not take yet, and the ROADMAP item
 # that brings each.
-UNPORTED_TRAIN_AXES = {"tp": "[7d]", "sp": "[10]", "pp": "[10]", "ep": "[10]"}
+UNPORTED_TRAIN_AXES = {"tp": "[7f]", "sp": "[10]", "pp": "[10]", "ep": "[10]"}
 # The axes a train step's batch and FSDP2 run over.
 TRAIN_AXES = ("dp", "fsdp")
 

@@ -19,7 +19,7 @@ of the global batch (`build_train_step`'s placement); the loss is JAX's
 global mean (the summed loss over the all-reduced token or mask count),
 the fused cross-entropy switch reads the global batch shape, and
 `grad_norm` is the global norm. A mesh with tp, sp, pp or ep above 1 is
-ROADMAP Queue 1 item [7d] (tp) or [10] and raises.
+ROADMAP Queue 1 item [7f] (tp) or [10] and raises.
 
 `state_tree` and `state_from_tree` map a TrainState to and from the tree a
 JAX user checkpoints (`{"step", "params", "opt_state"}`), so a run saved by
@@ -82,7 +82,7 @@ class TrainState:
 
 def _check_mesh(mesh) -> None:
     """A mesh training can run over: the port's DeviceMesh with tp, sp, pp
-    and ep at 1 (NotImplementedError citing [7d] or [10] otherwise)."""
+    and ep at 1 (NotImplementedError citing [7f] or [10] otherwise)."""
     from torch.distributed.device_mesh import DeviceMesh
 
     if not isinstance(mesh, DeviceMesh) or tuple(mesh.mesh_dim_names or ()) != \

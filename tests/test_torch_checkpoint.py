@@ -230,7 +230,7 @@ def _serve(engine, prompts, max_tokens):
     return [outs[i] for i in range(len(prompts))]
 
 
-def test_sharded_warm_start_serves_like_params_pkl(tmp_path):
+def test_sharded_warm_start_serves_like_params_pkl(tmp_path, monkeypatch):
     cfg = ttr.get_config("test-tiny")
     params = ttr.init_params(cfg, torch.Generator().manual_seed(2), "cpu")
     with open(tmp_path / "params.pkl", "wb") as f:
@@ -262,5 +262,10 @@ def test_sharded_warm_start_serves_like_params_pkl(tmp_path):
     engine = DecodeEngine.from_sharded_checkpoint(pcfg, sharded, num_slots=2, max_seq=64,
                                                   device="cpu")
     assert _serve(engine, prompts, 5) == served[0]
-    with pytest.raises(NotImplementedError, match="tp > 1"):
+    # tp > 1 is collective over a process group (tests/test_torch_tp.py);
+    # without one it raises before reading anything.
+    import torch.distributed as dist
+
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    with pytest.raises(RuntimeError, match="torch.distributed initialised"):
         DecodeEngine.from_sharded_checkpoint(pcfg, sharded, tp=2, device="cpu")

@@ -114,3 +114,16 @@ def test_fsdp_worker_imports_no_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_guard_covers_the_tp_module():
+    """llm/tp.py (tensor-parallel serving) is among the guard's files and
+    imports neither jax nor ray_tpu, and the engine that drives it is too."""
+    from ray_tpu_torch.llm import tp
+    from ray_tpu_torch.llm._engine import DecodeEngine
+
+    path = pathlib.Path(inspect.getsourcefile(tp)).resolve()
+    assert path == ROOT / "ray_tpu_torch/llm/tp.py" and path in FILES
+    assert pathlib.Path(inspect.getsourcefile(DecodeEngine._follow)).resolve() in FILES
+    tree = ast.parse(path.read_text(), filename=str(path))
+    assert not [pkg for _, pkg in _imported(tree) if pkg in FORBIDDEN]

@@ -221,8 +221,10 @@ def test_meta_model_has_the_drawn_shapes_and_no_storage():
     assert jax.devices()  # JAX stays on its eight CPU devices beside the port
 
 
-@pytest.mark.parametrize("axis,item", [("tp", "[7d]"), ("sp", "[10]"), ("pp", "[10]"),
-                                       ("ep", "[10]")])
+# The tp case keeps the id it has always run under; the item it expects
+# moved to [7f] when tensor-parallel serving was split from training.
+@pytest.mark.parametrize("axis,item", [pytest.param("tp", "[7f]", id="tp-[7d]"),
+                                       ("sp", "[10]"), ("pp", "[10]"), ("ep", "[10]")])
 def test_training_refuses_unported_axes(axis, item, fake_world):
     """A mesh with tp, sp, pp or ep above 1 is built; training on it raises
     and names its ROADMAP item, before any weight is touched."""

@@ -255,7 +255,7 @@ def test_fused_ce_switch_matches_jax(batch, fused):
 def test_multi_device_mesh_and_kept_state_raise():
     """The port's mesh with tp=2 is built (over a fake two-rank process
     group: no processes) and training on it raises, naming ROADMAP item
-    [7d]; a step that keeps the old state is not ported."""
+    [7f]; a step that keeps the old state is not ported."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
@@ -265,7 +265,7 @@ def test_multi_device_mesh_and_kept_state_raise():
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
     try:
         mesh = tmesh.create_mesh({"tp": 2}, device="cpu")
-        with pytest.raises(NotImplementedError, match=r"tp=2 is ROADMAP Queue 1 item \[7d\]"):
+        with pytest.raises(NotImplementedError, match=r"tp=2 is ROADMAP Queue 1 item \[7f\]"):
             tspmd.build_train_step(model, toptim.adamw(1e-3), mesh=mesh)
     finally:
         dist.destroy_process_group()
