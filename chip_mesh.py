@@ -59,6 +59,26 @@ decode step's and a prefill chunk's wall and device ms on rank 0
 (torch.profiler) and its idle share, the load peak, peak memory, the
 fault's seconds.
 
+The tier run, at tp=1 here and at each degree on its workers (before the
+fault): chip_smoke's `tiers` sequence through an `LLMServer` built from the
+tier flags (16-row blocks, 2 MiB each at llama3-8b's width: a host pool of
+80, a device tier of 128, a spill directory of 512 in the run's temporary
+directory): a 1,072-token prompt cold, from the host pool (promoting it to
+every rank's card), from the card, a second cold prompt whose insert
+evicts and spills the first's tail, then the first from disk. Rank 0 holds
+the cache; after each step it reads every rank's hot-tier slices
+(`_hot_report`). Gates: one hit from each tier; the hits' tokens equal,
+and every reply's tokens within the teacher-forced margin of the tp=1
+weights; K1 once per layer per rank on each cold request and never on a
+hit; after each step every rank holds exactly rank 0's tier ids, in rank
+0's tier bytes / tp (whole where the kv heads replicate); on the device hit
+no rank scatters host rows or attaches from the host; followers build no
+cache and no spill worker; the spill worker stopped and (TP) every rank's
+`memory_allocated` back after `shutdown`. Reported: TTFT per step, attach
+ms per tier, the same rows attached from the host pool (`_attach_kv`, into
+a free slot), each insert's read-back ms, promotion ms to the card and
+from disk, each rank's slice bytes, the spill.
+
 Prints JSON records; the last line is {"ok": ..., "device": {...}}. Exits
 non-zero on a failed gate or when the GPUs are fewer than the ranks; workers
 outliving the run's limit are killed.
@@ -294,6 +314,16 @@ FAULT_DEADLINE_S = 60.0
 # cast to the model's dtype; plus 64 MiB of small allocations.
 DRAW_BYTES_PER_ELEMENT = 10
 LOAD_SLACK_BYTES = 64 << 20
+# The tier run's prompts (prefix + suffix tokens), reply length and budgets
+# in 16-row blocks: chip_smoke's `tiers` phase on the card; in the CPU
+# rehearsal a host pool of 3 blocks, so the second prompt still evicts the
+# first's tail.
+TIER_SIZES = {"cuda": {"prefix": 1024, "suffix": 48, "max_tokens": 16, "host": 80,
+                       "device": 128, "spill": 512},
+              "cpu": {"prefix": 40, "suffix": 3, "max_tokens": 6, "host": 3, "device": 4,
+                      "spill": 16}}
+TIER_STEPS = ("cold", "host", "device", "evict", "disk")
+SPILL_WAIT_S = 120.0
 
 
 def _serve_config(args, tp: int, device):
@@ -429,6 +459,264 @@ def _allocated(device):
     return torch.cuda.memory_allocated(device)
 
 
+def _tier_flags(args, spill_dir: str) -> dict:
+    """The tier run's `llm_kv_*` flags: TIER_SIZES' budgets in blocks of
+    16 rows at `--model`'s width."""
+    from ray_tpu_torch.models.transformer import get_config
+
+    cfg, size = get_config(args.model), TIER_SIZES[args.device]
+    block = cfg.n_layers * 2 * 16 * cfg.n_kv_heads * cfg.head_dim * cfg.dtype.itemsize
+    return {"llm_kv_block_size": 16, "llm_prefix_cache_bytes": size["host"] * block,
+            "llm_kv_device_bytes": size["device"] * block, "llm_kv_spill_dir": spill_dir,
+            "llm_kv_spill_bytes": size["spill"] * block}
+
+
+def _tier_prompts(args, vocab: int) -> list:
+    """The tier run's prompts, in TIER_STEPS' order (a, a, a, b, a)."""
+    import numpy as np
+
+    size = TIER_SIZES[args.device]
+    rng = np.random.default_rng(args.seed + 6)
+    a, b = (rng.integers(0, vocab, size["prefix"] + size["suffix"]).tolist() for _ in range(2))
+    return [a, a, a, b, a]
+
+
+class _TierEvents:
+    """This process's host-row scatters, attaches and `_hot_report`s, from
+    class-level wrappers; a report's entry carries the K1 count so far (the
+    launches on the card, the wrapper's runs on the CPU), so the reports cut
+    the log into the run's steps."""
+
+    def __init__(self, device):
+        from ray_tpu_torch.llm._engine import DecodeEngine
+        from ray_tpu_torch.llm.tp import TPShard
+        from ray_tpu_torch.ops.attention import CALLS, LAUNCHES
+
+        count = LAUNCHES if device.type == "cuda" else CALLS
+        self.events = [["start", count["flash_fwd"]]]
+        self._saved = []
+        for cls, name in ((TPShard, "scatter_host"), (DecodeEngine, "_attach_kv"),
+                          (DecodeEngine, "_attach_hot"), (DecodeEngine, "_hot_report")):
+            fn = getattr(cls, name)
+            self._saved.append((cls, name, fn))
+            setattr(cls, name, self._logged(name, fn, count))
+
+    def _logged(self, name, fn, count):
+        def call(*args, **kwargs):
+            self.events.append([name, count["flash_fwd"]])
+            return fn(*args, **kwargs)
+        return call
+
+    def close(self) -> list:
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+        return self.events
+
+
+def _event_steps(events: list) -> list:
+    """A rank's tier events cut at its `_hot_report`s: per step, the names
+    logged and the K1 count."""
+    out, names, k1 = [], [], events[0][1]
+    for name, count in events[1:]:
+        if name == "_hot_report":
+            out.append({"names": names, "k1": count - k1})
+            names, k1 = [], count
+        else:
+            names.append(name)
+    return out
+
+
+def _tier_run(args, server, device) -> dict:
+    """Rank 0's side of the tier run: TIER_STEPS through `server`, each
+    step's reply, K1 count and last attach; on a TP engine every rank's
+    slices read after each step (`_hot_report`) beside rank 0's tier. The
+    attach (`_attach_lease`), the promotions to the card and from disk are
+    timed synchronized on rank 0."""
+    from ray_tpu_torch.ops.attention import CALLS, LAUNCHES
+
+    eng = server._engine
+    cache = eng._prefix_cache
+    count = LAUNCHES if device.type == "cuda" else CALLS
+    timings = {"attach": [], "promote_device": [], "promote_disk": [], "insert": []}
+    attach_lease, to_device = eng._attach_lease, cache._promote_to_device
+    from_disk, insert = cache._promote_from_disk, eng._insert_prompt_kv
+
+    def timed(key, fn, note):
+        def call(*args):
+            _sync(device)
+            t0 = time.perf_counter()
+            out = fn(*args)
+            _sync(device)
+            entry = note(args, out)
+            if entry is not None:
+                timings[key].append(dict(entry, ms=(time.perf_counter() - t0) * 1e3))
+            return out
+        return call
+
+    eng._attach_lease = timed("attach", attach_lease, lambda a, tier: {"tier": tier})
+    cache._promote_to_device = timed("promote_device", to_device,
+                                     lambda a, _: {"blocks": len(a[0])})
+    cache._promote_from_disk = timed("promote_disk", from_disk,
+                                     lambda a, added: {"blocks": added} if added else None)
+    eng._insert_prompt_kv = timed("insert", insert, lambda a, _: {"cached_tokens": a[3]})
+    steps, spill = [], {}
+    for step, prompt in zip(TIER_STEPS, _tier_prompts(args, server._cfg.vocab_size)):
+        if step == "disk":
+            # Every block the second prompt evicted is on disk first.
+            want, t0 = cache.stats()["evicted_blocks"], time.perf_counter()
+            while cache.stats()["tiers"]["spills"] < want and \
+                    time.perf_counter() - t0 < SPILL_WAIT_S:
+                time.sleep(0.005)
+            tiers = cache.stats()["tiers"]
+            spill = {"evicted_blocks": want, "spills": tiers["spills"],
+                     "spill_mib": tiers["spill_bytes"] / 2**20,
+                     "wait_s": time.perf_counter() - t0}
+        k1 = count["flash_fwd"]
+        reply = _serve(server, [prompt], TIER_SIZES[args.device]["max_tokens"])[0]
+        rec = {"step": step, "token_ids": reply["token_ids"], "ttft_s": reply["ttft_s"],
+               "k1": count["flash_fwd"] - k1, "last_attach": eng.last_attach}
+        if eng._tp is not None:
+            report = eng._op("_hot_report")
+            with cache._lock:
+                ids = sorted(cache._device._blocks)
+            rec.update(tier_ids=len(ids), tier_bytes=cache.stats()["tiers"]["device_bytes"],
+                       rank_ids_equal=[sorted(mine) == ids for mine in report],
+                       rank_bytes=[sum(nb for _, nb, _ in mine.values()) for mine in report])
+        steps.append(rec)
+    # The same rows from the host pool, for comparison: the first prompt's
+    # whole chain written into a free slot through `_attach_kv` (under TP
+    # rank 0 scatters each rank its kv-head slice of the host rows).
+    import torch
+
+    lease = eng.lease_prefix(_tier_prompts(args, server._cfg.vocab_size)[0])
+    try:
+        with torch.inference_mode():
+            _sync(device)
+            t0 = time.perf_counter()
+            eng._op("_attach_kv", 0, lease.kv())
+            _sync(device)
+            host_attach = {"rows": lease.matched_tokens, "ms": (time.perf_counter() - t0) * 1e3}
+    finally:
+        lease.release()
+    stats = cache.stats()
+    return {"steps": steps, "timings": timings, "spill": spill, "tiers": stats["tiers"],
+            "host_attach": host_attach, "leases_active": stats["leases_active"],
+            "spill_worker": cache._spill_thread}
+
+
+def _tier_server(args, tp: int, device, spill_dir: str):
+    from chip_smoke import _engine_flags
+
+    from ray_tpu_torch.llm import LLMServer
+
+    with _engine_flags(**_tier_flags(args, spill_dir)):
+        return LLMServer(_serve_config(args, tp, device))
+
+
+def _spill_threads() -> list:
+    import threading
+
+    return sorted(t.name for t in threading.enumerate() if t.name.startswith("kv-spill"))
+
+
+def _serve_tiers(args, rank: int, tp: int, device, sync) -> None:
+    """One rank's tier run at tp: every rank builds the server from the
+    same flags (a follower builds no cache), rank 0 runs the steps, every
+    rank shuts down. Its record to <dir>/tiers_<tp>_<r>.json."""
+    import asyncio
+    import gc
+
+    import torch.distributed as dist
+
+    rec = {"rank": rank, "tp": tp, "memory_before": _allocated(device)}
+    server = _tier_server(args, tp, device, os.path.join(args.dir, f"kv_spill_tp{tp}"))
+    eng = server._engine
+    rec["cache"] = type(eng._prefix_cache).__name__
+    events = _TierEvents(device)
+    dist.barrier(group=sync)
+    try:
+        if rank == 0:
+            run = _tier_run(args, server, device)
+            worker = run.pop("spill_worker")
+            rec.update(run)
+        rec["spill_threads"] = _spill_threads()
+        dist.barrier(group=sync)
+        asyncio.run(server.shutdown())
+    finally:
+        rec["events"] = events.close()
+    if rank == 0:
+        rec["spill_worker_stopped"] = worker is None or not worker.is_alive()
+        rec["tier_copies_after"] = len(eng._prefix_cache._device)
+    rec["slices_after"] = len(eng._hot_slices)
+    del server, eng
+    gc.collect()
+    rec["memory_after"] = _allocated(device)
+    dist.barrier(group=sync)
+    with open(os.path.join(args.dir, f"tiers_{tp}_{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _tier_gates(args, ref_eng, margin: float, cfg, ranks: list) -> dict:
+    """The tier run's gates over each rank's record (rank 0's first)."""
+    from chip_smoke import _teacher_forced
+
+    lead, tp = ranks[0], len(ranks)
+    by = {s["step"]: s for s in lead["steps"]}
+    answers = [s["token_ids"] for s in lead["steps"]]
+    exact, total, gap = _teacher_forced(ref_eng, _tier_prompts(args, cfg.vocab_size), answers)
+    hits = [by[t]["token_ids"] for t in ("host", "device", "disk")]
+    cold_k1 = cfg.n_layers
+    want_k1 = {"cold": cold_k1, "host": 0, "device": 0, "evict": cold_k1, "disk": 0}
+    out = {"teacher_forced": [exact, total, gap],
+           "hits_equal_cold": [h == by["cold"]["token_ids"] for h in hits]}
+    tiers = lead["tiers"]
+    gates = {
+        "one_hit_per_tier": [by[t]["last_attach"]["tier"] for t in ("host", "device", "disk")]
+        == ["host", "device", "disk"] and (tiers["hits_host"], tiers["hits_device"],
+                                           tiers["hits_disk"]) == (1, 1, 1),
+        "tokens": hits[0] == hits[1] == hits[2] and gap <= margin
+        and all(len(a) == TIER_SIZES[args.device]["max_tokens"] for a in answers),
+        "spill": tiers["spill_drops"] == 0 and lead["spill"].get("spills", 0)
+        >= lead["spill"].get("evicted_blocks", 1) > 0 and lead["spill_worker_stopped"]
+        and lead["leases_active"] == 0,
+    }
+    if tp == 1:
+        gates["k1"] = {s["step"]: s["k1"] for s in lead["steps"]} == want_k1
+        return dict(out, gates=gates)
+    from ray_tpu_torch.llm.tp import kv_prefix_sharding
+
+    share = tp if kv_prefix_sharding(tp, cfg.n_kv_heads) is not None else 1
+    per_rank = [dict(zip(TIER_STEPS, _event_steps(r["events"]))) for r in ranks]
+    out["rank_k1"] = [{s: v["k1"] for s, v in steps.items()} for steps in per_rank]
+    gates.update({
+        "k1_per_layer_per_rank": all(k1 == want_k1 for k1 in out["rank_k1"]),
+        "ranks_hold_rank0_ids": all(all(s["rank_ids_equal"]) for s in lead["steps"]),
+        "slice_bytes": by["device"]["tier_bytes"] > 0 and all(
+            b == s["tier_bytes"] // share for s in lead["steps"] for b in s["rank_bytes"]),
+        "no_host_rows_on_device_hit": all(steps["device"]["names"] == ["_attach_hot"]
+                                          for steps in per_rank),
+        "followers_no_cache": all(r["cache"] == "NoneType" and r["spill_threads"] == []
+                                  for r in ranks[1:]),
+        "freed": lead["tier_copies_after"] == 0 and all(r["slices_after"] == 0 for r in ranks),
+        "memory_returned": args.device != "cuda" or all(
+            r["memory_after"] == r["memory_before"] for r in ranks),
+    })
+    return dict(out, gates=gates)
+
+
+def _tier_report(lead: dict) -> dict:
+    """The tier run's times on rank 0: TTFT per step, attach ms per tier,
+    promotion ms."""
+    t = lead["timings"]
+    device = next(s for s in lead["steps"] if s["step"] == "device")
+    return {"ttft_s": {s["step"]: s["ttft_s"] for s in lead["steps"]},
+            "attach_ms": {a["tier"]: a["ms"] for a in t["attach"]},
+            "host_attach": lead["host_attach"], "insert_ms": [i["ms"] for i in t["insert"]],
+            "promote_device": t["promote_device"], "promote_disk": t["promote_disk"],
+            "rank_slice_bytes": device.get("rank_bytes"), "spill": lead["spill"],
+            "tiers": lead["tiers"]}
+
+
 def _serve_worker(args) -> int:
     """One rank of a tp=--ranks server: its record to <dir>/serve_<tp>_<r>.json."""
     import datetime
@@ -497,6 +785,7 @@ def _serve_worker(args) -> int:
         dist.barrier(group=sync)
         with open(os.path.join(args.dir, f"serve_{tp}_{rank}.json"), "w") as f:
             json.dump(rec, f)
+        _serve_tiers(args, rank, tp, device, sync)
         if tp == 2:
             _follower_fault(args, rank, device, sync)
     finally:
@@ -634,18 +923,28 @@ def _serve_main(args, card) -> int:
     total = ref["weights_bytes"] + ref["kv_bytes"]
     expected_k1 = cfg.n_layers * len(prompts)
     ok = ref["teacher_forced"][2] <= margin
+    ok = _serve_tiers_tp1(args, device, eng, margin, cfg) and ok
     records = []
     for tp in TP_DEGREES:
         tmp = tempfile.mkdtemp(prefix="chip_mesh_serve_")
         try:
             codes = _launch(args, tp, tmp)
-            ranks, faults = [], []
+            ranks, faults, tier_ranks = [], [], []
             for rank in range(tp):
-                for name, out in ((f"serve_{tp}_{rank}.json", ranks), (f"fault_{rank}.json", faults)):
+                for name, out in ((f"serve_{tp}_{rank}.json", ranks),
+                                  (f"fault_{rank}.json", faults),
+                                  (f"tiers_{tp}_{rank}.json", tier_ranks)):
                     path = os.path.join(tmp, name)
                     out.append(json.load(open(path)) if os.path.exists(path) else None)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
+        tier_rec = {"phase": f"tiers_tp{tp}", "model": args.model, "tp": tp, "codes": codes}
+        if all(r is not None for r in tier_ranks):
+            tier_rec.update(_tier_gates(args, eng, margin, cfg, tier_ranks),
+                            **_tier_report(tier_ranks[0]))
+        tier_rec["ok"] = "gates" in tier_rec and all(tier_rec["gates"].values())
+        ok = ok and tier_rec["ok"]
+        _emit(tier_rec)
         rec = {"phase": f"serve_tp{tp}", "model": args.model, "tp": tp, "codes": codes,
                "margin": margin, "per_rank": ranks}
         if tp == 2:
@@ -694,6 +993,37 @@ def _serve_main(args, card) -> int:
     _emit({"ok": ok, "device": {"platform": "gpu" if args.device == "cuda" else "cpu",
                                 "kind": card["device"], "count": card["count"]}})
     return 0 if ok else 1
+
+
+def _serve_tiers_tp1(args, device, ref_eng, margin: float, cfg) -> bool:
+    """The tier run at tp=1 in this process (the reference's weights stay
+    beside it), with a spill directory of its own; emits its record."""
+    import asyncio
+    import gc
+
+    tmp = tempfile.mkdtemp(prefix="chip_mesh_kv_spill_")
+    before = _allocated(device)
+    try:
+        server = _tier_server(args, 1, device, tmp)
+        eng = server._engine
+        run = _tier_run(args, server, device)
+        worker = run.pop("spill_worker")
+        asyncio.run(server.shutdown())
+        run["spill_worker_stopped"] = worker is None or not worker.is_alive()
+        del server, eng
+        gc.collect()
+        if device.type == "cuda":
+            import torch
+
+            torch.cuda.empty_cache()  # the workers' rank 0 shares GPU 0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"phase": "tiers_tp1", "model": args.model, "tp": 1,
+           **_tier_gates(args, ref_eng, margin, cfg, [run]), **_tier_report(run),
+           "memory_before": before, "memory_after": _allocated(device)}
+    rec["ok"] = all(rec["gates"].values())
+    _emit(rec)
+    return rec["ok"]
 
 
 def main(argv=None) -> int:

@@ -63,9 +63,13 @@ thread runs the same operation on its shards in the order announced. The
 forward all-reduces o's and down's f32 partial products and the masked
 embedding rows; the logits stay split by vocab until a token is chosen
 (gathered to rank 0 for host sampling; an argmax across the ranks for the
-verify and the multi-step chunk). Not with tp > 1 yet (they raise, ROADMAP
-[7e]): the tiered prefix cache, the PD handoff and model drafts. Not ported
-yet: the DeviceChannel transport.
+verify and the multi-step chunk). The tiered prefix cache's host pool and
+disk tier are rank 0's; its device hot tier is per rank: rank 0's tier
+keeps the book (ids, LRU, bytes), every rank keeps its kv-head slice of
+each resident block on its own card, and a device hit attaches from each
+rank's own slices with no host rows moving. Not with tp > 1 yet (they
+raise, ROADMAP [7e]): the PD handoff and model drafts. Not ported yet: the
+DeviceChannel transport.
 """
 
 from __future__ import annotations
@@ -342,7 +346,8 @@ def _tp_later(what: str):
 
 # The engine methods a follower runs when rank 0 announces them (`_op`).
 _TP_OPS = frozenset({"_prefill_at", "_decode_logits", "_decode_multi", "_spec_verify_batched",
-                     "_attach_kv", "_read_kv_blocks", "_install_adapter_row", "_ping"})
+                     "_attach_kv", "_read_kv_blocks", "_install_adapter_row", "_ping",
+                     "_promote_hot", "_attach_hot", "_drop_hot", "_hot_report"})
 
 
 def _leader_only(fn):
@@ -421,7 +426,7 @@ class DecodeEngine:
         self._tp: Optional[TPShard] = None
         self._kv_pool: Optional[ShardedKVPool] = None
         if self.tp > 1:
-            self._check_tp(spec_config, prefix_cache)
+            self._check_tp(spec_config)
             self._tp = TPShard(cfg, self.tp, self.device)
             params = shard_decode_params(params, self.tp, self._tp.rank, cfg)
         self.params = _tree_to(params, self.device)
@@ -497,8 +502,11 @@ class DecodeEngine:
         # instance is used as-is. With llm_kv_device_bytes / llm_kv_spill_dir
         # set the cache is the TIERED hierarchy: a device hot tier above the
         # host pool (hot attaches are zero-H2D) and an async disk spill tier
-        # below it.
-        if prefix_cache is None or prefix_cache is True:
+        # below it. On a TP engine the cache is rank 0's: a follower builds
+        # none (no spill store, no spill worker) and ignores one passed in.
+        if self._tp is not None and not self._tp.leader:
+            prefix_cache = None
+        elif prefix_cache is None or prefix_cache is True:
             prefix_cache = None
             if CONFIG.llm_prefix_cache_bytes > 0:
                 if CONFIG.llm_kv_device_bytes > 0 or CONFIG.llm_kv_spill_dir:
@@ -518,10 +526,18 @@ class DecodeEngine:
         self._prefix_cache = prefix_cache or None
         self._kv_block_size = (CONFIG.llm_kv_block_size if self._prefix_cache is None
                                else self._prefix_cache.block_size)
+        # A TP rank's slices of the blocks rank 0's hot tier holds (block id
+        # -> [L, 2, bs, Hkv / tp, D] on its card); `_tier_sync` keeps their
+        # ids rank 0's tier's.
+        self._hot_slices: Dict[int, torch.Tensor] = {}
+        self._hot_shared = False
+        self._tier_lock = threading.Lock()
         if self._tp is not None:
             self._kv_block_size = self._tp.broadcast(self._kv_block_size)
-            if not self._tp.leader:
-                self._prefix_cache = None  # rank 0 keeps the host pool
+            if (isinstance(self._prefix_cache, TieredPrefixCacheManager)
+                    and self._prefix_cache._device is not None):
+                self._prefix_cache.share_device_tier(functools.partial(self._op, "_promote_hot"))
+                self._hot_shared = True
         if max_queue_depth is None:
             max_queue_depth = CONFIG.llm_max_queue_depth
         if token_budget is None:
@@ -536,7 +552,8 @@ class DecodeEngine:
             cache = self._prefix_cache
 
             def lookup(prompt, adapter):
-                return cache.lookup(prompt, namespace=adapter)
+                with self._tier_sync():
+                    return cache.lookup(prompt, namespace=adapter)
 
         adapter_acquire = adapter_resident = None
         if self._adapters is not None:
@@ -587,13 +604,9 @@ class DecodeEngine:
             self._thread = threading.Thread(target=self._loop, daemon=True)
             self._thread.start()
 
-    def _check_tp(self, spec_config: Optional[dict], prefix_cache) -> None:
+    def _check_tp(self, spec_config: Optional[dict]) -> None:
         """Refuse, before any group is made, what a TP engine does not run
-        yet: a tiered prefix cache and a model draft ([7e])."""
-        if isinstance(prefix_cache, TieredPrefixCacheManager) or (
-                prefix_cache in (None, True) and CONFIG.llm_prefix_cache_bytes > 0
-                and (CONFIG.llm_kv_device_bytes > 0 or CONFIG.llm_kv_spill_dir)):
-            raise _tp_later("the tiered prefix cache (llm_kv_device_bytes, llm_kv_spill_dir)")
+        yet: a model draft ([7e])."""
         if spec_config and spec_config.get("method") != "ngram":
             raise _tp_later("a model draft (draft_layers, draft_cfg, the self-draft)")
 
@@ -1165,9 +1178,10 @@ class DecodeEngine:
                         * ck.element_size())
         if self._tp is not None and self._tp.kv_split:
             block_nbytes *= self.tp  # the pool's blocks hold every kv head
-        cache.insert_missing(prompt[:n],
-                             lambda first, stop: self._op("_read_kv_blocks", slot, first, stop),
-                             block_nbytes, namespace=adapter)
+        with self._tier_sync():  # an eviction drops device copies
+            cache.insert_missing(prompt[:n],
+                                 lambda first, stop: self._op("_read_kv_blocks", slot, first, stop),
+                                 block_nbytes, namespace=adapter)
 
     def _read_kv_blocks(self, slot: int, first: int, stop: int) -> List[torch.Tensor]:
         """Host copies of slot's cache blocks [first, stop): one owned
@@ -1253,7 +1267,8 @@ class DecodeEngine:
             return 0
         adapter = self._adapter_index(lora)
         insert = getattr(self._prefix_cache, "insert_remote", self._prefix_cache.insert)
-        return insert(token_ids, kv, namespace=adapter)
+        with self._tier_sync():
+            return insert(token_ids, kv, namespace=adapter)
 
     @_leader_only
     def scheduler_stats(self) -> dict:
@@ -1447,12 +1462,16 @@ class DecodeEngine:
             self._tp.close()
 
     def _release_tp_state(self):
-        """A TP rank's pool and weights dropped (idempotent): with them the
-        rank's device memory of this engine, past what the caller holds."""
+        """A TP rank's pool, weights and hot-tier slices dropped (idempotent):
+        with them the rank's device memory of this engine, past what the
+        caller holds. Rank 0's tier drops its copies too."""
         if self._kv_pool is not None:
             self._kv_pool.free()
             self._caches = []
             self.params = None
+            self._hot_slices.clear()
+            if self._hot_shared:
+                self._prefix_cache.release_device_tier()
 
     # -- stepper -----------------------------------------------------------
     def _bucket(self, n: int) -> int:
@@ -1471,17 +1490,113 @@ class DecodeEngine:
         (all of them where the kv heads replicate), and followers pass None."""
         tp = self._tp
         if tp is not None:
-            parts = None
-            if tp.leader:
-                dim = kv_prefix_sharding(self.tp, self.cfg.n_kv_heads)
-                parts = [kv] * self.tp if dim is None else \
-                    [part.contiguous() for part in kv.chunk(self.tp, dim=dim)]
-            kv = tp.scatter_host(parts)
+            kv = tp.scatter_host(self._kv_head_parts(kv) if tp.leader else None)
+        self._write_rows(slot, kv)
+
+    def _write_rows(self, slot: int, kv: torch.Tensor):
+        """kv [L, 2, P, Hkv_local, D] into slot's cache rows [0, P), copied
+        to the engine's device first where it is not there."""
         kv = kv.to(self.device)
         P = kv.shape[2]
         for i, (ck, cv) in enumerate(self._caches):
             ck[slot, :P] = kv[i, 0]
             cv[slot, :P] = kv[i, 1]
+
+    def _kv_head_parts(self, kv: torch.Tensor) -> List[torch.Tensor]:
+        """Rank by rank, its kv-head slice of a KV prefix [L, 2, P, Hkv, D]:
+        the whole prefix for every rank where the kv heads replicate."""
+        dim = kv_prefix_sharding(self.tp, self.cfg.n_kv_heads)
+        if dim is None:
+            return [kv] * self.tp
+        return [part.contiguous() for part in kv.chunk(self.tp, dim=dim)]
+
+    # -- a TP engine's tiered cache: each rank's slices of rank 0's hot tier --
+    @contextlib.contextmanager
+    def _tier_sync(self):
+        """Around each call rank 0 makes into a TP engine's tiered cache
+        (lookup, insert, the device attach): one call at a time, and on its
+        way out the ids the hot tier dropped meanwhile (LRU, eviction, an
+        orphaned copy) go to every rank as one announced `_drop_hot`, so
+        when the call returns every rank holds exactly the tier's ids. The
+        tier drops under the manager's lock, where no collective may run, so
+        it logs them (`take_dropped`). One call at a time keeps a drop of an
+        id from passing a later copy of the same id. A no-op elsewhere."""
+        if not self._hot_shared:
+            yield
+            return
+        with self._tier_lock:
+            try:
+                yield
+            finally:
+                dropped = self._prefix_cache.take_dropped()
+                if dropped:
+                    self._op("_drop_hot", dropped)
+
+    def _promote_hot(self, block_id: int, host: Optional[torch.Tensor]):
+        """A hot-tier promotion on every rank, the copy rank 0's manager
+        makes (outside its lock) through `_op`: rank 0 hands each rank its
+        kv-head slice of the host block [L, 2, bs, Hkv, D], and each copies
+        its slice to its card on the engine's stream and keeps it under the
+        block's id. Returns rank 0's slice, which its tier holds. A device
+        out-of-memory on any rank is every rank's (`TPShard.agree`): no rank
+        keeps the slice, no rank fails, and rank 0 raises it to the manager,
+        which stops promoting, as on one device."""
+        tp = self._tp
+        part = tp.scatter_host(self._kv_head_parts(host) if tp.leader else None)
+        try:
+            dev = self._kv_block_to_device(part)
+        except torch.cuda.OutOfMemoryError:
+            dev = None
+        if not tp.agree(dev is not None):
+            if tp.leader:
+                raise torch.cuda.OutOfMemoryError(
+                    f"a rank could not hold its slice of KV block {block_id}")
+            return None
+        self._hot_slices[block_id] = dev
+        return dev
+
+    def _attach_hot(self, slot: int, block_ids: List[int], kv: Optional[torch.Tensor] = None):
+        """A device-tier attach on every rank: each writes its own slices of
+        the leased blocks into slot's rows, on its card (rank 0 passes the
+        chain its tier joined, `device_kv`). No host rows move."""
+        if kv is None:
+            slices = [self._hot_slices[bid] for bid in block_ids]
+            kv = slices[0] if len(slices) == 1 else torch.cat(slices, dim=2)
+        self._write_rows(slot, kv)
+
+    def _drop_hot(self, block_ids: List[int]):
+        """Every rank drops its slices of the blocks rank 0's tier dropped."""
+        for bid in block_ids:
+            self._hot_slices.pop(bid, None)
+
+    def _hot_report(self, with_rows: bool = False):
+        """Every rank's hot-tier slices, gathered to rank 0 (None on the
+        others): per rank, block id -> (shape, bytes, a host copy when
+        with_rows else None). A diagnostic (tests, chip_mesh.py); announced
+        through `_op`, it reads each rank's slices after every earlier
+        operation."""
+        mine = {bid: (list(t.shape), t.nbytes, t.cpu() if with_rows else None)
+                for bid, t in self._hot_slices.items()}
+        return self._tp.gather_host(mine)
+
+    def _attach_lease(self, slot: int, lease) -> str:
+        """Write a lease's prefix rows into slot's cache rows; returns the
+        tier that served them. One device: from `_leased_kv`'s best tier.
+        TP: where rank 0's hot tier holds every leased block, each rank
+        reads its own slices (`_attach_hot`); else rank 0 scatters the host
+        rows (`_attach_kv`), a lease stamped "device" whose copies went
+        meanwhile included, as `_leased_kv` decides on one device."""
+        if self._tp is None:
+            kv, tier = self._leased_kv(lease)
+            self._op("_attach_kv", slot, kv)
+            return tier
+        with self._tier_sync():
+            kv = self._prefix_cache.device_kv(lease) if self._hot_shared else None
+            if kv is not None:
+                self._op("_attach_hot", slot, list(lease.block_ids), kv)
+                return lease.tier
+        self._op("_attach_kv", slot, lease.kv())
+        return "host" if lease.tier == "device" else lease.tier
 
     def _exec_chunk(self, chunk: ScheduledChunk):
         """Dispatch one scheduled prefill chunk. The FIRST chunk of a
@@ -1508,8 +1623,7 @@ class DecodeEngine:
                 # The host form is a new tensor, and device copies are
                 # never written, so releasing the lease cannot change the
                 # rows the copy reads.
-                kv, tier = self._leased_kv(req.lease)
-                self._op("_attach_kv", slot, kv)
+                tier = self._attach_lease(slot, req.lease)
             finally:
                 req.lease.release()
                 req.lease = None

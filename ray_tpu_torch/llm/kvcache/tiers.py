@@ -36,6 +36,13 @@ where JAX's store reads its own bf16 file back as void and cannot stitch
 it. The promotion copy raises past a device out-of-memory only (JAX's
 swallows every error). No `llm_kv_tier_*` metrics are pushed; `stats()`
 reports the same counters as plain ints.
+
+On a tensor-parallel engine (one process per GPU) the manager is rank 0's,
+and its hot tier is the book of every rank's copies: `share_device_tier`
+swaps `to_device` for a copy that gives every rank its kv-head slice of the
+block, and from then on the tier logs each id it drops (LRU, eviction, a
+copy orphaned by an eviction during the copy) for the engine to pass on
+(`take_dropped`). JAX's single process places the block sharded instead.
 """
 
 from __future__ import annotations
@@ -264,6 +271,9 @@ class DeviceHotTier:
         self.capacity_bytes = int(capacity_bytes)
         self.bytes_resident = 0
         self._blocks: "OrderedDict[int, tuple]" = OrderedDict()  # bid -> (dev, nbytes)
+        # The ids dropped since the last `take_dropped`, when other ranks
+        # hold copies of the blocks too (None: nobody else does).
+        self.dropped: Optional[List[int]] = None
 
     def __len__(self) -> int:
         return len(self._blocks)
@@ -286,9 +296,8 @@ class DeviceHotTier:
         self.bytes_resident += nbytes
         dropped = 0
         while self.bytes_resident > self.capacity_bytes and len(self._blocks) > 1:
-            bid, (_dev, nb) = next(iter(self._blocks.items()))
-            del self._blocks[bid]
-            self.bytes_resident -= nb
+            bid = next(iter(self._blocks))
+            self.drop(bid)
             dropped += 1
         return dropped
 
@@ -296,6 +305,12 @@ class DeviceHotTier:
         entry = self._blocks.pop(block_id, None)
         if entry is not None:
             self.bytes_resident -= entry[1]
+            self.note_dropped(block_id)
+
+    def note_dropped(self, block_id: int):
+        """Log a dropped id for the other ranks' copies (no-op without)."""
+        if self.dropped is not None:
+            self.dropped.append(block_id)
 
 
 class TieredPrefixCacheManager(PrefixCacheManager):
@@ -326,6 +341,9 @@ class TieredPrefixCacheManager(PrefixCacheManager):
             to_device = lambda host: host.to(device)  # noqa: E731
         self._device = DeviceHotTier(device_bytes) if device_bytes > 0 else None
         self._to_device = to_device
+        # copy(block_id, host): a tensor-parallel engine's promotion
+        # (`share_device_tier`); None copies with to_device.
+        self._copy: Optional[Callable[[int, torch.Tensor], torch.Tensor]] = None
         self._disk = DiskSpillStore(spill_dir, spill_bytes) if spill_dir else None
         self._tiers = {
             "hits_device": 0, "hits_host": 0, "hits_disk": 0,
@@ -398,17 +416,56 @@ class TieredPrefixCacheManager(PrefixCacheManager):
                     continue
                 host = block.kv
             try:
-                dev = self._to_device(host)  # outside the lock: a real copy
+                # Outside the lock: a real copy.
+                dev = self._to_device(host) if self._copy is None else self._copy(bid, host)
             except torch.cuda.OutOfMemoryError:
                 return  # device under pressure: the host tier still serves
             with self._lock:
                 if self._pool._blocks.get(bid) is None:
-                    continue  # evicted while we copied: drop the orphan
+                    # Evicted while we copied: drop the orphan (and the
+                    # other ranks' copies of it).
+                    self._device.note_dropped(bid)
+                    continue
                 # The host block's bytes: on the CPU `to_device` may hand
                 # back the host tensor itself, which the tier still counts.
                 dropped = self._device.put(bid, dev, host.nbytes)
                 self._tiers["promotions_device"] += 1
                 self._tiers["demotions_device"] += dropped
+
+    def share_device_tier(self, copy: Callable[[int, torch.Tensor], torch.Tensor]) -> None:
+        """Make the hot tier rank 0's book of a tensor-parallel engine's
+        copies. `copy(block_id, host)` replaces `to_device`: it gives every
+        rank its slice of the block and returns rank 0's, or raises
+        `torch.cuda.OutOfMemoryError` on every rank's behalf (the promotion
+        then stops, as on one device). The tier keeps its ids, LRU order and
+        bytes (each block's whole `nbytes`, as on one device) and logs every
+        id it drops from here on; the engine passes them to the other ranks
+        (`take_dropped`), since drops happen under the lock, where no
+        collective may run."""
+        if self._device is None:
+            raise ValueError("this manager has no device tier to share")
+        with self._lock:
+            if len(self._device):
+                raise ValueError("share the device tier before it holds a copy")
+            self._copy = copy
+            self._device.dropped = []
+
+    def take_dropped(self) -> List[int]:
+        """The ids the shared hot tier dropped since the last call, in order
+        ([] when the tier is not shared)."""
+        if self._device is None or self._device.dropped is None:
+            return []
+        with self._lock:
+            out, self._device.dropped = self._device.dropped, []
+        return out
+
+    def release_device_tier(self) -> None:
+        """Drop every device copy (a tensor-parallel engine's shutdown, which
+        frees every rank's slices)."""
+        if self._device is not None:
+            with self._lock:
+                for bid in list(self._device._blocks):
+                    self._device.drop(bid)
 
     # -- disk tier ----------------------------------------------------------
     def _promote_from_disk(self, token_ids: List[int], namespace: int) -> int:

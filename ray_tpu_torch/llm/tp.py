@@ -290,7 +290,8 @@ class TPShard:
     the engine's backend (NCCL for a CUDA device, gloo for the CPU); `ctl`
     is a gloo group for what travels between hosts: rank 0's announcements
     (`announce`/`receive`), the prefix cache's KV rows (`scatter_host`,
-    `gather_host`) and the stop handshake. Both wait at most `timeout_s`.
+    `gather_host`), the ranks' agreement on an outcome (`agree`) and the
+    stop handshake. Both wait at most `timeout_s`.
 
     A rank that fails reports it in the job's store (`report_failure`) and
     closes its groups. Over gloo that fails the others' pending operations
@@ -449,6 +450,14 @@ class TPShard:
         got = [None] * self.tp if self.leader else None
         dist.gather_object(obj, got, dst=self._src, group=self.ctl)
         return got
+
+    def agree(self, ok: bool) -> bool:
+        """Whether `ok` holds on every rank, on every rank."""
+        import torch.distributed as dist
+
+        got = [None] * self.tp
+        dist.all_gather_object(got, bool(ok), group=self.ctl)
+        return all(got)
 
     def barrier(self) -> None:
         import torch.distributed as dist

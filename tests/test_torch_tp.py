@@ -16,11 +16,20 @@ heads: at tp=2 a rank's 3 query heads straddle two kv groups).
 
 - Two ranks: m4 at tp=2 with the ngram draft on `tests/test_llm_tp.py`'s
   sweep prompts, and a prefill's logits; m6 against tp=1; 6 LoRA adapters
-  through 2 slots against tp=1; a prefix-cache hit; `from_sharded_checkpoint
-  (tp=2)` from a checkpoint JAX saved; `load_model` at tp=2; the [7e]
-  refusals; a follower that raises.
+  through 2 slots against tp=1; a prefix-cache hit; the tiered prefix
+  cache built from the flags and passed as an instance; `from_sharded_
+  checkpoint(tp=2)` from a checkpoint JAX saved; `load_model` at tp=2; the
+  [7e] refusals; a follower that raises.
 - Four ranks: m4 at tp=4 with the ngram draft, per-rank bytes; m2 at tp=4
-  against tp=1 and its prefix-cache hit.
+  against tp=1, its prefix-cache hit and the tiered prefix cache (kv heads
+  replicated: every rank's hot-tier slice is the whole block).
+
+The tiered cases replay `tests/test_llm_kvtier.py:264`'s sequence (cold,
+host hit, device hit, a prompt whose insert spills the first, disk hit) on
+a host pool of 2 blocks, a device tier of 4 and a spill directory, against
+ray_tpu's tp=1 engine with the same manager; after every step rank 0 reads
+every rank's hot-tier slices (`_hot_report`, an announced operation, so it
+runs after every earlier one on each rank).
 Each rank records its leaves' local shapes, its engines' shutdowns (twice)
 and the modules it loaded.
 """
@@ -50,6 +59,15 @@ PREFIX_PROMPT = np.random.default_rng(4).integers(1, 256, 40).tolist()
 LORA = {"max_loras": 8, "rank": 4, "cache_slots": 2}
 LORA_PROMPT = [7, 21, 3, 9]
 FOLLOWER_DEADLINE_S = 15.0
+_TIER_RNG = np.random.default_rng(11)  # test_llm_kvtier.py's prompts
+TIER_A = _TIER_RNG.integers(0, 256, 40).tolist() + [5, 6, 7]
+TIER_B = _TIER_RNG.integers(0, 256, 40).tolist()
+TIER_STEPS = (("cold", TIER_A), ("host", TIER_A), ("device", TIER_A), ("other", TIER_B),
+              ("disk", TIER_A))
+# (world, tag, model): m4's kv heads split at tp=2, m2's replicate at tp=4.
+TIER_CASES = [(2, "tiers", "m4"), (2, "tiers_instance", "m4"), (4, "tiers", "m2")]
+TIER_EVENTS = ("scatter_host", "_attach_kv", "_attach_hot", "_promote_hot")
+SPILL_WAIT_S = 10.0
 
 
 def _flat(tree, prefix=()) -> dict:
@@ -85,6 +103,19 @@ def _weights(name: str) -> dict:
         fan_in = np.prod(shape[:2]) if path[-2:-1] == ("o",) else shape[0]
         out["/".join(path)] = 1 + z / 10 if init is None else z / np.float32(np.sqrt(fan_in))
     return out
+
+
+def _tier_block_bytes(n_layers, n_kv_heads, head_dim) -> int:
+    return n_layers * 2 * 16 * n_kv_heads * head_dim * 4  # a 16-row f32 block
+
+
+def _wait_spills(stats, n: int) -> None:
+    """Poll a tiered manager's stats until n spills are written (bounded)."""
+    deadline = time.monotonic() + SPILL_WAIT_S
+    while stats()["tiers"]["spills"] < n:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{n} spills not written: {stats()['tiers']}")
+        time.sleep(0.005)
 
 
 def _adapters(hidden, q_out, v_out) -> dict:
@@ -284,6 +315,192 @@ def _prefix(w: _Worker, name: str, tag: str) -> None:
     w.record(tag, eng)
 
 
+class _EventLog:
+    """Each call this process makes to the methods of TIER_EVENTS (the
+    host-row scatter, both attaches, the promotion) and to `_hot_report`,
+    whose entries carry the K1 wrapper's runs so far and cut the log into
+    the sequence's steps."""
+
+    def __init__(self):
+        from ray_tpu_torch.llm._engine import DecodeEngine
+        from ray_tpu_torch.llm.tp import TPShard
+        from ray_tpu_torch.ops.attention import CALLS
+
+        self.events = [["start", CALLS["flash_fwd"]]]
+        self._saved = []
+        owners = {"scatter_host": TPShard, "_hot_report": DecodeEngine}
+        for name in (*TIER_EVENTS, "_hot_report"):
+            cls = owners.get(name, DecodeEngine)
+            fn = getattr(cls, name)
+            self._saved.append((cls, name, fn))
+            setattr(cls, name, self._logged(name, fn, CALLS))
+
+    def _logged(self, name, fn, calls):
+        def call(*args, **kwargs):
+            self.events.append([name, calls["flash_fwd"]])
+            return fn(*args, **kwargs)
+        return call
+
+    def close(self):
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+
+
+def _tiers(w: _Worker, name: str, tag: str, instance: bool = False) -> None:
+    """TIER_STEPS at tp=world on a cache of 2 blocks (device tier 4, a
+    spill directory per rank, so a follower's would show): built from the
+    flags, or (instance) rank 0 passing its own manager and the followers
+    none. After every step rank 0 reads every rank's slices beside its
+    tier's ids and host blocks."""
+    import dataclasses
+
+    import torch
+
+    from ray_tpu_torch.llm import _engine as engine_mod
+    from ray_tpu_torch.llm.kvcache import TieredPrefixCacheManager
+
+    cfg = w.cfg[name]
+    bb = _tier_block_bytes(cfg.n_layers, cfg.n_kv_heads, cfg.head_dim)
+    spill = w.root / f"spill_{tag}_{w.world}_{w.rank}"
+    saved, kw = engine_mod.CONFIG, {}
+    if not instance:
+        engine_mod.CONFIG = dataclasses.replace(
+            saved, llm_prefix_cache_bytes=2 * bb, llm_kv_block_size=16,
+            llm_kv_device_bytes=4 * bb, llm_kv_spill_dir=str(spill))
+    elif w.leader:
+        kw["prefix_cache"] = TieredPrefixCacheManager(
+            16, 2 * bb, name=tag, device_bytes=4 * bb, to_device=torch.clone,
+            spill_dir=str(spill))
+    try:
+        eng = w.built(tag, w.engine(name, **kw))
+    finally:
+        engine_mod.CONFIG = saved
+    log = _EventLog()
+    w.barrier()  # every rank logs before rank 0's first request
+    out = {"spill_dir": spill.exists(), "cache": type(eng._prefix_cache).__name__,
+           "spill_threads": sorted(t.name for t in threading.enumerate()
+                                   if t.name.startswith("kv-spill"))}
+    try:
+        if w.leader:
+            cache, steps = eng._prefix_cache, []
+            for step, prompt in TIER_STEPS:
+                if step == "disk":  # the first prompt's two blocks were spilled by "other"
+                    _wait_spills(cache.stats, 2)
+                tokens = _generate(eng, prompt, n=6)
+                report = eng._op("_hot_report", True)
+                with cache._lock:
+                    tier_ids = list(cache._device._blocks)
+                    hosts = {bid: cache._pool._blocks[bid].kv.numpy() for bid in tier_ids}
+                # Rank r's kv-head slice of each host block (all of it where
+                # the kv heads replicate).
+                want = [{bid: np.split(kv, w.world, axis=3)[r] if eng._tp.kv_split else kv
+                         for bid, kv in hosts.items()} for r in range(w.world)]
+                steps.append({
+                    "step": step, "tokens": tokens, "last_attach": eng.last_attach,
+                    "tier_ids": sorted(tier_ids),
+                    "ids": [sorted(mine) for mine in report],
+                    "shapes": [sorted({tuple(shape) for shape, _, _ in mine.values()})
+                               for mine in report],
+                    "bits": [all(np.array_equal(rows.numpy(), want[r][bid])
+                                 for bid, (_, _, rows) in mine.items() if bid in hosts)
+                             for r, mine in enumerate(report)]})
+            _wait_spills(cache.stats, 4)  # the disk promotion evicted other's blocks
+            out.update(steps=steps, tiers=cache.stats()["tiers"],
+                       leases_active=cache.stats()["leases_active"])
+            worker = cache._spill_thread
+        w.record(tag, eng)  # a follower's returns once rank 0 stopped the engine
+    finally:
+        log.close()
+    out["events"] = log.events
+    out["slices_after_shutdown"] = len(eng._hot_slices)
+    if w.leader:
+        out["spill_worker_stopped"] = worker is not None and not worker.is_alive() \
+            and cache._spill_thread is None
+        out["tier_after_shutdown"] = len(cache._device)
+    w.res[tag] = out
+
+
+def _tier_oom(w: _Worker) -> None:
+    """A device tier at tp=2 whose rank 1 runs out of device memory on
+    every promotion copy: TIER_A cold, then twice from the host pool. Every
+    rank skips every copy, no rank fails, and the hits are host hits."""
+    import dataclasses
+
+    import torch
+
+    from ray_tpu_torch.llm import _engine as engine_mod
+
+    cfg = w.cfg["m4"]
+    bb = _tier_block_bytes(cfg.n_layers, cfg.n_kv_heads, cfg.head_dim)
+    saved = engine_mod.CONFIG
+    engine_mod.CONFIG = dataclasses.replace(saved, llm_prefix_cache_bytes=2 * bb,
+                                            llm_kv_block_size=16, llm_kv_device_bytes=4 * bb)
+    try:
+        eng = w.engine("m4")
+    finally:
+        engine_mod.CONFIG = saved
+    if w.rank == 1:
+        def oom(_host):
+            raise torch.cuda.OutOfMemoryError("injected out of memory")
+
+        eng._kv_block_to_device = oom
+    w.barrier()
+    out = {}
+    if w.leader:
+        out["tokens"], out["tiers_seen"], out["ids"] = [], [], []
+        for _ in range(3):
+            out["tokens"].append(_generate(eng, TIER_A, n=6))
+            out["tiers_seen"].append((eng.last_attach or {}).get("tier"))
+            out["ids"].append([sorted(mine) for mine in eng._op("_hot_report")])
+        out["tiers"] = eng.prefix_cache_stats()["tiers"]
+        out["error"] = repr(eng.error)
+    out["thread_alive"] = eng._thread.is_alive()
+    w.barrier()
+    w.record("tier_oom", eng)
+    w.res["tier_oom"] = out
+
+
+def _tier_dropped_lease(w: _Worker) -> None:
+    """A lease stamped "device" whose copies rank 0's tier drops before the
+    attach (as LRU pressure or an eviction would): the attach is a host
+    attach of the same rows, and the drop reaches every rank on the way
+    out."""
+    import dataclasses
+
+    import torch
+
+    from ray_tpu_torch.llm import _engine as engine_mod
+
+    cfg = w.cfg["m4"]
+    bb = _tier_block_bytes(cfg.n_layers, cfg.n_kv_heads, cfg.head_dim)
+    saved = engine_mod.CONFIG
+    engine_mod.CONFIG = dataclasses.replace(saved, llm_prefix_cache_bytes=2 * bb,
+                                            llm_kv_block_size=16, llm_kv_device_bytes=4 * bb)
+    try:
+        eng = w.engine("m4")
+    finally:
+        engine_mod.CONFIG = saved
+    if w.leader:
+        cache, out = eng._prefix_cache, {}
+        _generate(eng, TIER_A, n=2)
+        _generate(eng, TIER_A, n=2)  # a host hit: both blocks promoted
+        lease = cache.lookup(TIER_A)
+        try:
+            out["stamp"] = lease.tier
+            with cache._lock:
+                for bid in lease.block_ids:
+                    cache._device.drop(bid)
+            with torch.inference_mode():
+                out["tier"] = eng._attach_lease(1, lease)
+                rows = eng._op("_read_kv_blocks", 1, 0, len(lease.block_ids))
+            out["rows_equal"] = torch.equal(torch.cat(rows, dim=2), lease.kv())
+        finally:
+            lease.release()
+        out["ids"] = [sorted(mine) for mine in eng._op("_hot_report")]
+        w.res["tier_dropped_lease"] = out
+    w.record("tier_dropped_lease", eng)
+
+
 def _checkpoint(w: _Worker) -> None:
     from ray_tpu_torch.checkpoint import _restore
     from ray_tpu_torch.llm._engine import DecodeEngine
@@ -338,11 +555,7 @@ def _load(w: _Worker) -> None:
 
 
 def _refusals(w: _Worker) -> None:
-    """The [7e] combinations raise on every rank before any group is made."""
-    import dataclasses
-
-    from ray_tpu_torch.llm import _engine as engine_mod
-
+    """The model drafts raise on every rank before any group is made."""
     out = {}
     cases = {"draft_layers": {"spec_config": {"draft_layers": 1}},
              "draft_cfg": {"spec_config": {"draft_cfg": w.cfg["m4"]}},
@@ -352,16 +565,6 @@ def _refusals(w: _Worker) -> None:
             w.engine("m4", **kw)
         except NotImplementedError as e:
             out[what] = str(e)
-    saved = engine_mod.CONFIG
-    for what, flags in (("device_tier", {"llm_kv_device_bytes": 1 << 20}),
-                        ("spill_dir", {"llm_kv_spill_dir": str(w.root / "spill")})):
-        engine_mod.CONFIG = dataclasses.replace(saved, **flags)
-        try:
-            w.engine("m4")
-        except NotImplementedError as e:
-            out[what] = str(e)
-        finally:
-            engine_mod.CONFIG = saved
     w.res["refused_7e"] = out
 
 
@@ -424,6 +627,10 @@ def _worker(world: int, rank: int, root: pathlib.Path) -> int:
             _against_tp1(w, "m6", "straddle")
             _lora(w)
             _prefix(w, "m4", "prefix")
+            _tiers(w, "m4", "tiers")
+            _tiers(w, "m4", "tiers_instance", instance=True)
+            _tier_oom(w)
+            _tier_dropped_lease(w)
             _checkpoint(w)
             _load(w)
             _refusals(w)
@@ -432,6 +639,7 @@ def _worker(world: int, rank: int, root: pathlib.Path) -> int:
             _sweep(w, "m4", "sweep")
             _against_tp1(w, "m2", "replicated_kv", spec_config=SPEC)
             _prefix(w, "m2", "prefix")
+            _tiers(w, "m2", "tiers")
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -532,7 +740,32 @@ def _jax_prefill_rows(weights: dict) -> list:
         eng.shutdown()
 
 
-def _jax_side(weights: dict) -> dict:
+def _jax_tiers(weights: dict, name: str, root: pathlib.Path) -> dict:
+    """TIER_STEPS on ray_tpu's tp=1 engine with test_llm_kvtier.py's
+    manager (2 host blocks, a 4-block device tier, a spill directory): each
+    step's tokens and last_attach, then the tier counters once every spill
+    is written."""
+    from ray_tpu.llm.kvcache import TieredPrefixCacheManager as JTiered
+
+    flat = weights[name]
+    _, n_kv, dim = flat["layer_0/attn/k/kernel"].shape
+    bb = _tier_block_bytes(sum(k.endswith("attn/k/kernel") for k in flat), n_kv, dim)
+    mgr = JTiered(16, 2 * bb, name=f"jax-tiers-{name}", device_bytes=4 * bb,
+                  spill_dir=str(root / f"jax_spill_{name}"))
+    eng, _ = _jax_engine(weights, name, prefix_cache=mgr)
+    try:
+        steps = []
+        for step, prompt in TIER_STEPS:
+            if step == "disk":
+                _wait_spills(mgr.stats, 2)
+            steps.append({"tokens": _jgen(eng, prompt, n=6), "last_attach": eng.last_attach})
+        _wait_spills(mgr.stats, 4)
+        return {"steps": steps, "tiers": mgr.stats()["tiers"]}
+    finally:
+        eng.shutdown()
+
+
+def _jax_side(weights: dict, root: pathlib.Path) -> dict:
     """ray_tpu's tp=1 engine on every case the ranks serve, one engine per
     case, the engines in threads of their own (the modules imported first,
     here: a circular import is not safe across threads)."""
@@ -542,10 +775,12 @@ def _jax_side(weights: dict) -> dict:
     import ray_tpu.llm.kvcache  # noqa: F401
     import ray_tpu.models.transformer  # noqa: F401
 
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(7) as pool:
         jobs = {name: pool.submit(_jax_served, weights, name) for name in ("m4", "m2", "m6")}
         jobs["lora"] = pool.submit(_jax_lora, weights)
         jobs["prefill_rows"] = pool.submit(_jax_prefill_rows, weights)
+        for name in ("m4", "m2"):
+            jobs[f"tiers_{name}"] = pool.submit(_jax_tiers, weights, name, root)
         return {key: job.result() for key, job in jobs.items()}
 
 
@@ -591,7 +826,7 @@ def _make_run(root: pathlib.Path) -> dict:
         np.savez(root / "inputs.tmp.npz", **{f"{name}:{k}": v for name, flat in weights.items()
                                              for k, v in flat.items()})
         os.replace(root / "inputs.tmp.npz", root / "inputs.npz")
-        jax_side = _jax_side(weights)
+        jax_side = _jax_side(weights, root)
     finally:
         codes = {world: _reap(procs, t0 + LAUNCH_S) for world, procs in launches.items()}
     results = {world: [json.loads((root / f"result_{world}_{r}.json").read_text())
@@ -828,12 +1063,12 @@ def test_follower_error_fails_rank0_requests(run):
         assert res["follower_fault_shutdown"]["watcher_alive"] is False
 
 
-@pytest.mark.parametrize("what", ["draft_layers", "draft_cfg", "self_draft", "device_tier",
-                                  "spill_dir", "prefill_detached", "submit_prefilled"])
+@pytest.mark.parametrize("what", ["draft_layers", "draft_cfg", "self_draft", "prefill_detached",
+                                  "submit_prefilled"])
 def test_7e_paths_raise(run, what):
-    """(k) The tiered prefix cache, the PD handoff and model drafts raise
-    NotImplementedError naming [7e] on a TP engine (the constructors on
-    every rank, before any group is made); the ngram draft runs."""
+    """(k) The PD handoff and model drafts raise NotImplementedError naming
+    [7e] on a TP engine (the constructors on every rank, before any group
+    is made); the ngram draft runs."""
     for res in run["results"][2]:
         refused = dict(res["refused_7e"])
         if res["rank"] == 0:
@@ -841,6 +1076,152 @@ def test_7e_paths_raise(run, what):
         elif what in ("prefill_detached", "submit_prefilled"):
             continue
         assert "[7e]" in refused[what], (what, res["rank"])
+
+
+TIER_IDS = ["tp2-flags", "tp2-instance", "tp4-flags"]
+
+
+def _tier_run(run, world, tag, model):
+    """(rank 0's record, every rank's, JAX's tp=1 record) of one tier case."""
+    ranks = [res[tag] for res in run["results"][world]]
+    return ranks[0], ranks, run["jax"][f"tiers_{model}"]
+
+
+def _steps(events: list) -> list:
+    """A rank's event log cut at its `_hot_report` entries: per step, the
+    names logged and the K1 wrapper's runs."""
+    out, names, k1 = [], [], events[0][1]
+    for name, calls in events[1:]:
+        if name == "_hot_report":
+            out.append({"names": names, "k1": calls - k1})
+            names, k1 = [], calls
+        else:
+            names.append(name)
+    return out
+
+
+@pytest.mark.parametrize("world,tag,model", TIER_CASES, ids=TIER_IDS)
+def test_tiers_tokens_and_attach_tiers_equal_jax(run, world, tag, model):
+    """(l) Cold, host hit, device hit, the evicting prompt and the disk hit
+    serve JAX's tp=1 tokens, and each step's last_attach (the tier that
+    served the hit, 32 cached tokens) is JAX's."""
+    lead, _, ref = _tier_run(run, world, tag, model)
+    assert [s["step"] for s in lead["steps"]] == [s for s, _ in TIER_STEPS]
+    for got, want in zip(lead["steps"], ref["steps"]):
+        assert got["tokens"] == want["tokens"], got["step"]
+        assert got["last_attach"] == want["last_attach"], got["step"]
+    by_step = {s["step"]: s for s in lead["steps"]}
+    for step in ("host", "device", "disk"):
+        assert by_step[step]["last_attach"] == {"tier": step, "cached_tokens": 32}
+        assert by_step[step]["tokens"] == by_step["cold"]["tokens"]
+
+
+@pytest.mark.parametrize("world,tag,model", TIER_CASES, ids=TIER_IDS)
+def test_tier_counters_equal_jax(run, world, tag, model):
+    """(l) Rank 0's tier counters, device bytes (whole blocks) included,
+    are JAX's tp=1 engine's once every spill is written; no lease is left."""
+    lead, _, ref = _tier_run(run, world, tag, model)
+    assert lead["tiers"] == ref["tiers"]
+    assert {k: lead["tiers"][k] for k in ("hits_device", "hits_host", "hits_disk")} == \
+        {"hits_device": 1, "hits_host": 1, "hits_disk": 1}
+    assert lead["tiers"]["promotions_device"] > 0 and lead["tiers"]["spills"] == 4
+    assert lead["leases_active"] == 0
+
+
+@pytest.mark.parametrize("world,tag,model", TIER_CASES, ids=TIER_IDS)
+def test_every_rank_holds_rank0_tier_ids_after_every_step(run, world, tag, model):
+    """(m) After every step each rank's slices are exactly the blocks rank
+    0's hot tier holds: the promotions reached every rank, and so did the
+    drops the eviction made under the manager's lock."""
+    lead, _, _ = _tier_run(run, world, tag, model)
+    for step in lead["steps"]:
+        assert len(step["ids"]) == world
+        assert all(ids == step["tier_ids"] for ids in step["ids"]), step["step"]
+    by_step = {s["step"]: s for s in lead["steps"]}
+    assert len(by_step["device"]["tier_ids"]) == 2
+    assert not set(by_step["device"]["tier_ids"]) & set(by_step["other"]["tier_ids"])
+
+
+@pytest.mark.parametrize("world,tag,model", TIER_CASES, ids=TIER_IDS)
+def test_slices_are_kv_head_slices_bit_for_bit(run, world, tag, model):
+    """(m) Each rank's slice is [L, 2, 16, Hkv / tp, D] (the whole block
+    where the kv heads replicate: m2 at tp=4) and equals its kv-head slice
+    of rank 0's host block bit for bit."""
+    lead, _, _ = _tier_run(run, world, tag, model)
+    flat = run["weights"][model]
+    _, n_kv, dim = flat["layer_0/attn/k/kernel"].shape
+    local = n_kv // world if n_kv % world == 0 else n_kv
+    for step in lead["steps"]:
+        for shapes in step["shapes"]:
+            assert shapes in ([], [[2, 2, 16, local, dim]]), step["step"]
+        assert all(step["bits"]), step["step"]
+    assert (local == n_kv) == (model == "m2")
+
+
+@pytest.mark.parametrize("world,tag,model", TIER_CASES, ids=TIER_IDS)
+def test_device_hit_reads_own_slices_and_k1_only_cold(run, world, tag, model):
+    """(n) On the device hit every rank attaches from its own slices once,
+    with no host-row scatter and no host attach; K1 runs once per layer on
+    every rank on the two cold requests and never on a hit."""
+    _, ranks, _ = _tier_run(run, world, tag, model)
+    for r, res in enumerate(ranks):
+        steps = dict(zip([s for s, _ in TIER_STEPS], _steps(res["events"])))
+        assert steps["device"]["names"] == ["_attach_hot"], r
+        for step in ("host", "disk"):
+            assert "_attach_hot" in steps[step]["names"] or "_attach_kv" in steps[step]["names"]
+        assert {s: v["k1"] for s, v in steps.items()} == {
+            "cold": 2, "host": 0, "device": 0, "other": 2, "disk": 0}, r
+
+
+@pytest.mark.parametrize("world,tag,model", TIER_CASES, ids=TIER_IDS)
+def test_followers_build_no_cache_spill_store_or_thread(run, world, tag, model):
+    """(o) Only rank 0 has a tiered manager, a spill directory and a spill
+    worker; the followers, given the same flags (or none beside rank 0's
+    instance), build no cache at all."""
+    _, ranks, _ = _tier_run(run, world, tag, model)
+    assert ranks[0]["cache"] == "TieredPrefixCacheManager" and ranks[0]["spill_dir"]
+    for res in ranks[1:]:
+        assert res["cache"] == "NoneType"
+        assert res["spill_dir"] is False and res["spill_threads"] == []
+
+
+@pytest.mark.parametrize("world,tag,model", TIER_CASES, ids=TIER_IDS)
+def test_tier_shutdown_frees_slices_and_stops_spill_worker(run, world, tag, model):
+    """(o) After shutdown no rank holds a slice, rank 0's tier holds no
+    copy and its spill worker has stopped; every rank's pool and weights
+    are freed."""
+    lead, ranks, _ = _tier_run(run, world, tag, model)
+    assert lead["spill_worker_stopped"] and lead["tier_after_shutdown"] == 0
+    assert all(res["slices_after_shutdown"] == 0 for res in ranks)
+    for res in run["results"][world]:
+        assert res["shutdown"][tag]["freed"], res["rank"]
+
+
+def test_follower_oom_in_promotion_skips_on_every_rank(run):
+    """(o) A follower's device out-of-memory in a promotion is every rank's:
+    no rank keeps a slice, no rank fails, the hits are served from the host
+    pool with JAX's cold tokens, and no promotion is counted."""
+    lead = _leader(run, 2)["tier_oom"]
+    cold = run["jax"]["tiers_m4"]["steps"][0]["tokens"]
+    assert lead["tokens"] == [cold] * 3
+    assert lead["tiers_seen"] == [None, "host", "host"]
+    assert lead["ids"] == [[[], []]] * 3
+    assert lead["error"] == "None"
+    assert (lead["tiers"]["hits_host"], lead["tiers"]["promotions_device"],
+            lead["tiers"]["device_blocks"]) == (2, 0, 0)
+    for res in run["results"][2]:
+        assert res["tier_oom"]["thread_alive"], res["rank"]
+        assert res["shutdown"]["tier_oom"]["freed"], res["rank"]
+
+
+def test_device_lease_whose_copies_dropped_attaches_from_host_tp2(run):
+    """(o) A lease stamped "device" whose copies went before the attach is
+    served by the host pool (reported "host", as on one device), every
+    rank's rows are the host rows, and no rank keeps a dropped slice."""
+    out = _leader(run, 2)["tier_dropped_lease"]
+    assert out["stamp"] == "device" and out["tier"] == "host"
+    assert out["rows_equal"]
+    assert out["ids"] == [[], []]
 
 
 def test_follower_public_calls_raise(run):
